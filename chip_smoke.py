@@ -8,17 +8,30 @@ Phases, each printing its own line; any failure exits non-zero:
 1. device: requires CUDA, prints the ``nvidia-smi`` name and power limit;
 2. build: compiles the hand kernels from ``ofps_torch/csrc`` with nvcc;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the 1080p serving step gives it (B=4);
+   the shapes its paths give it: the 1080p serving step (B=4), the cv block
+   matcher (B=1: flow mode at 1080x1920 and 270x480, the guarded 67x120
+   s=6 level), the warp at the five LK level shapes (B=1 and B=4), the 2-D
+   sweep at the big-level shapes of ``FlowParams(axis_sep=False)`` and
+   ``FlowParams(search=2)``;
 4. slice: ``StreamPipeline`` (almeida + block_motion, serving config) at
    1080p, B=4, 8 frames of a textured scene moving 3 px per frame with a
    patch moving 12 px per frame; checks that every kernel ran, the shift is
    recovered, poses are finite, the detector reports the patch, and the
    plain path agrees;
-5. timing: ms/step at B=1, 4, 8 for the kernel path and the plain path,
-   and each kernel against its plain version (CUDA events).
+5. refine_2d: ``dense_flow`` at 1080p with ``axis_sep=False`` and with
+   ``search=2``, whose big levels run the 2-D sweep; checks the launches
+   and the plain path;
+6. cv: the cv decoder's step (``CvFlowStep``, decoder defaults: 5 levels,
+   150x84 grid, contrast mask) at 1080p on 8 frames of the scene with its
+   left third at 2% contrast, for the block matcher and the robust LK (warp
+   and guard kernels); checks the launches, that the mask drops some cells
+   and keeps others, the 3 px pan in the valid cells and the plain path;
+7. timing: ms/step of the serving step at B=1, 4, 8 and of the cv step for
+   both algorithms, kernel and plain paths; each kernel against its plain
+   version and, where one exists, one PyTorch library call (CUDA events).
 
-Prints one JSON line of per-kernel results, then, as the last line,
-``{"ok": true, "device": {...}}``.
+Prints one JSON line of per-kernel results, the ``nvidia-smi`` line, then,
+as the last line, ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -37,19 +50,49 @@ OBJ, OBJ_SHIFT = 400, 12
 SEED = 0
 # Kernel vs plain: share of outputs off by more than 1e-3 px must stay
 # below 0.1% (an argmin flip on a float32 near-tie moves a pixel by up to
-# one candidate step); grid sums within 1e-5 in normalized units.
+# one candidate step); grid sums within 1e-5 in normalized units; the warp
+# within 1e-5 (same expression order, -fmad=false: expected bit-exact).
 MISMATCH_PX = 1e-3
 MAX_MISMATCH_SHARE = 1e-3
 GRID_TOL = 1e-5
+WARP_TOL = 1e-5
+# The cv step's kernel and plain paths: LK flow within 1e-4 px (only the
+# warp differs, and it is exact); the block matcher's grid as the slice's.
+LK_PATH_TOL = 1e-4
+CV_PAN_TOL = 0.25
+# The cv phase dims the left third of its frames to this contrast, so the
+# contrast mask drops cells (valid must be neither none nor all of them).
+LOW_CONTRAST = 0.02
+
+# Roofline of one H100 SXM (published, dense, at 700 W): HBM3 bytes/s and
+# float32 operations/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# Float32 operations per pixel that the functions need (not what a kernel
+# repeats): one bilinear sample (2 adds, 4 clamps, 2 floors, 2 subs, 2
+# one-minus, 8 muls, 3 adds); one |diff| (sub, abs, bf16 round), taken once
+# per pixel and candidate; a separable win x win box sum, 2 (win - 1) adds
+# per pixel; one upsampled flow plane (6 muls, 3 adds, the 2x scale).
+WARP_OPS = 23
+DIFF_OPS = 3
+UPSAMPLE_OPS = 10
+
+
+def box_ops(win: int) -> int:
+    return 2 * (win - 1)
 
 REPLACES = {
     "flow_refine": ("csrc/flow_refine.cu", "ofps_tpu/pallas/flow_refine.py:60"),
+    "flow_refine_2d": (
+        "csrc/flow_refine_small.cu",
+        "ofps_tpu/pallas/flow_refine.py:60 (2-D mode, :396-480)"),
     "flow_refine_small": (
         "csrc/flow_refine_small.cu", "ofps_tpu/pallas/flow_refine_small.py:39"),
     "guard_select": (
         "csrc/flow_refine_small.cu", "ofps_tpu/pallas/flow_refine_small.py:231"),
     "median3x3_uv": (
         "csrc/flow_refine_small.cu", "ofps_tpu/pallas/flow_refine_small.py:196"),
+    "warp_bilinear": ("csrc/warp.cu", "ofps_tpu/pallas/warp.py:46"),
 }
 
 
@@ -90,6 +133,14 @@ def moving_frames(torch, frames: int, batch: int, h: int, w: int, device):
     return out.contiguous()
 
 
+def with_low_contrast_band(frames):
+    """``frames`` (..., H, W) with the left third dimmed to 2% contrast, so
+    that the cv decoder's contrast mask drops the cells there."""
+    out = frames.contiguous().clone()
+    out[..., : frames.shape[-1] // 3] *= LOW_CONTRAST
+    return out
+
+
 def time_ms(torch, fn, iters: int) -> float:
     """Mean ms per call of ``fn`` after one warm-up call (CUDA events)."""
     fn()
@@ -104,11 +155,44 @@ def time_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def sweep_cost(batch, h, w, hc, wc, n_cand, win, out_bytes=None):
+    """(bytes, ops) of one refine launch at a (h, w) level from a (hc, wc)
+    flow: i1, i2, the two flow planes read once, the two outputs written
+    once; per pixel the warp, for each of ``n_cand`` candidates the |diff|,
+    its box sum, the divide and the prior, then the selection (a compare
+    per candidate, two parabolas), the upsample and the final add."""
+    px = batch * h * w
+    nbytes = 4 * (2 * px + 2 * batch * hc * wc) + (8 * px if out_bytes is None else out_bytes)
+    per_px = (WARP_OPS + n_cand * (DIFF_OPS + box_ops(win) + 2) + n_cand + 2 * 8 + 2
+              + (2 * UPSAMPLE_OPS if (hc, wc) != (h, w) else 0))
+    return nbytes, px * per_px
+
+
+class Case:
+    """One kernel launch at a path shape: the kernel call, its plain
+    version, how to compare them, the least ms the H100 could take for its
+    (bytes, ops) by each of the two limits, and, where one PyTorch call
+    computes the same function, that call."""
+
+    def __init__(self, kcall, pcall, kind, shape, cost, library=None):
+        self.kcall, self.pcall, self.kind, self.shape = kcall, pcall, kind, shape
+        self.bytes_ms = 1e3 * cost[0] / HBM_BYTES_PER_S
+        self.ops_ms = 1e3 * cost[1] / FP32_OPS_PER_S
+        self.bound = max(self.bytes_ms, self.ops_ms)
+        self.bound_by = "bytes" if self.bytes_ms >= self.ops_ms else "operations"
+        self.library = library
+        self.note = ""
+
+
 def kernel_cases(torch, device, batch: int):
-    """Per kernel: list of (kernel_call, plain_call, kind) at the 1080p
-    serving step's shapes, on a 3 px-shifted textured scene."""
+    """Per kernel: list of :class:`Case` at the shapes of the 1080p serving
+    step (B=batch), the LK warp (B=1 and B=batch) and the big levels'
+    2-D mode (B=batch), on a 3 px-shifted textured scene."""
+    import torch.nn.functional as F
+
     from ofps_torch.kernels import flow_refine as kfr
     from ofps_torch.kernels import flow_refine_small as kfs
+    from ofps_torch.kernels import warp as kwarp
     from ofps_torch.ops.flow_pyramid import FlowParams, border_margin_px
     from ofps_torch.ops.image import build_pyramid
     from ofps_torch.core.motion import grid_size_for
@@ -117,53 +201,111 @@ def kernel_cases(torch, device, batch: int):
     p1, p2 = build_pyramid(frames[0], 6), build_pyramid(frames[1], 6)
     g = torch.Generator(device=device).manual_seed(SEED + 1)
 
-    def flow_at(lvl):
+    def flow_at(lvl, b=batch):
         """A smooth flow near the true shift at pyramid level ``lvl``."""
         hh, ww = p1[lvl].shape[-2:]
-        n = torch.randn((batch, 2, hh // 8 + 2, ww // 8 + 2), generator=g, device=device)
+        n = torch.randn((b, 2, hh // 8 + 2, ww // 8 + 2), generator=g, device=device)
         n = torch.nn.functional.interpolate(n, size=(hh, ww), mode="bilinear")
         u = SHIFT / 2**lvl + 0.4 * n[:, 0]
         return u.contiguous(), (0.4 * n[:, 1]).contiguous()
 
+    def shape(lvl, b=batch):
+        return (b,) + tuple(p1[lvl].shape[-2:])
+
+    def frame_pair(lvl, b=batch):
+        return p1[lvl][:b].contiguous(), p2[lvl][:b].contiguous()
+
+    def sweep_cases(lvl, b, u0, v0, s):
+        """The 2-D sweep at level ``lvl`` from (u0, v0): its Case and the
+        plain result."""
+        args = (*frame_pair(lvl, b), u0, v0, s, win, bf16)
+        case = Case(
+            lambda a=args: kfs.flow_refine_small(*a),
+            lambda a=args: kfs.flow_refine_small_plain(*a), ("flow", None), shape(lvl, b),
+            sweep_cost(*shape(lvl, b), *u0.shape[-2:], (2 * s + 1) ** 2, win))
+        return case, kfs.flow_refine_small_plain(*args)
+
+    def guard_case(lvl, b, warm, zero):
+        args = (*frame_pair(lvl, b), *warm, *zero, win)
+        px = math.prod(shape(lvl, b))
+        return Case(
+            lambda a=args: kfs.guard_select(*a),
+            lambda a=args: kfs.guard_select_plain(*a), ("flow", None), shape(lvl, b),
+            # 6 planes in, 2 out; per pixel and flow: warp, |diff|, box sum,
+            # divide; then the compare and two selects.
+            (4 * 8 * px, px * (2 * (WARP_OPS + 2 + box_ops(win) + 1) + 3)))
+
     win, bf16 = 5, torch.bfloat16
+    gh_gw = grid_size_for(W, H)[::-1]
     plan = kfr.build_grid_plan(
-        H, W, *grid_size_for(W, H)[::-1],
-        border_px=border_margin_px(FlowParams(), H, W), device=device,
+        H, W, *gh_gw, border_px=border_margin_px(FlowParams(), H, W), device=device,
     )
     cases = {k: [] for k in REPLACES}
-    for lvl, grid in ((0, plan), (1, None), (3, None)):
-        uc, vc = flow_at(lvl + 1)
-        args = (p1[lvl], p2[lvl], uc, vc, win, bf16, grid)
-        cases["flow_refine"].append((
+    # The serving step's axis-separable levels (B=batch): 1080x1920 with
+    # the grid, 540x960 and 135x240; the cv block matcher's (B=1, flow
+    # mode): 1080x1920 and 270x480.
+    for lvl, b, grid in ((0, batch, plan), (1, batch, None), (3, batch, None),
+                         (0, 1, None), (2, 1, None)):
+        uc, vc = flow_at(lvl + 1, b)
+        args = (*frame_pair(lvl, b), uc, vc, win, bf16, grid)
+        out_bytes = None if grid is None else 8 * b * gh_gw[0] * gh_gw[1]
+        cases["flow_refine"].append(Case(
             lambda a=args: kfr.flow_refine(*a),
             lambda a=args: kfr.flow_refine_plain(*a),
-            ("grid", plan) if grid is not None else ("flow", None),
-        ))
+            ("grid", plan) if grid is not None else ("flow", None), shape(lvl, b),
+            sweep_cost(*shape(lvl, b), *uc.shape[-2:], 5, win, out_bytes)))
+    # The big levels' 2-D mode: 1080x1920 s=1 from 540x960 (axis_sep=False)
+    # and 540x960 s=2 from 270x480 (search=2).
+    for lvl, s in ((0, 1), (1, 2)):
+        cases["flow_refine_2d"].append(sweep_cases(lvl, batch, *flow_at(lvl + 1), s)[0])
     # 67x120: s=1 from the upsampled 33x60 flow, then the median.
-    uc, vc = flow_at(5)
-    args = (p1[4], p2[4], uc, vc, 1, win, bf16)
-    cases["flow_refine_small"].append((
-        lambda a=args: kfs.flow_refine_small(*a),
-        lambda a=args: kfs.flow_refine_small_plain(*a), ("flow", None)))
-    # 33x60: s=6 from the warm init and from zero, guard, median.
-    uw, vw = flow_at(5)
-    zero = torch.zeros_like(uw)
-    for u0, v0 in ((uw, vw), (zero, zero)):
-        args = (p1[5], p2[5], u0, v0, 6, win, bf16)
-        cases["flow_refine_small"].append((
-            lambda a=args: kfs.flow_refine_small(*a),
-            lambda a=args: kfs.flow_refine_small_plain(*a), ("flow", None)))
-    rw = kfs.flow_refine_small_plain(p1[5], p2[5], uw, vw, 6, win, bf16)
-    r0 = kfs.flow_refine_small_plain(p1[5], p2[5], zero, zero, 6, win, bf16)
-    args = (p1[5], p2[5], *rw, *r0, win)
-    cases["guard_select"].append((
-        lambda a=args: kfs.guard_select(*a),
-        lambda a=args: kfs.guard_select_plain(*a), ("flow", None)))
+    cases["flow_refine_small"].append(sweep_cases(4, batch, *flow_at(5), 1)[0])
+    # The guarded coarsest level: s=6 from the warm init and from zero,
+    # then the guard; the serving step's at 33x60 (B=batch), the cv block
+    # matcher's at 67x120 (B=1).
+    for lvl, b in ((5, batch), (4, 1)):
+        uw, vw = flow_at(lvl, b)
+        zero = torch.zeros_like(uw)
+        warm_case, warm = sweep_cases(lvl, b, uw, vw, 6)
+        zero_case, zeroed = sweep_cases(lvl, b, zero, zero, 6)
+        cases["flow_refine_small"] += [warm_case, zero_case]
+        case = guard_case(lvl, b, warm, zeroed)
+        # The pixels where the guard takes the zero-init side: a guard that
+        # always kept the warm side disagrees with the plain version there.
+        picked = case.pcall()
+        case.note = "zero side taken at {:.2e} of pixels".format(
+            ((picked[0] == zeroed[0]) & (zeroed[0] != warm[0])).float().mean().item())
+        cases["guard_select"].append(case)
     for lvl in (5, 4, 3, 2):
         args = flow_at(lvl)
-        cases["median3x3_uv"].append((
+        px = math.prod(shape(lvl))
+        cases["median3x3_uv"].append(Case(
             lambda a=args: kfs.median3x3_uv(*a),
-            lambda a=args: kfs.median3x3_uv_plain(*a), ("flow", None)))
+            lambda a=args: kfs.median3x3_uv_plain(*a), ("flow", None), shape(lvl),
+            # 2 planes in, 2 out; 19 exchanges (min + max) per plane.
+            (4 * 4 * px, px * 2 * 19 * 2)))
+    # The LK warp at its five level shapes, B=1 and B=batch.  The library
+    # yardstick is grid_sample (border padding, align_corners) on the same
+    # sample coordinates, normalized outside the timed call.
+    for b in (1, batch):
+        for lvl in range(5):
+            img = p2[lvl][:b].contiguous()
+            u, v = (x[:b].contiguous() for x in flow_at(lvl))
+            hh, ww = img.shape[-2:]
+            ys = torch.arange(hh, dtype=torch.float32, device=device)[:, None]
+            xs = torch.arange(ww, dtype=torch.float32, device=device)[None, :]
+            grid = torch.stack(
+                [(xs + u) * (2.0 / (ww - 1)) - 1.0, (ys + v) * (2.0 / (hh - 1)) - 1.0], dim=-1)
+
+            def library(i=img[:, None], gr=grid):
+                return F.grid_sample(i, gr, mode="bilinear", padding_mode="border",
+                                     align_corners=True)[:, 0]
+
+            px = b * hh * ww
+            cases["warp_bilinear"].append(Case(
+                lambda a=(img, u, v): kwarp.warp_bilinear(*a),
+                lambda a=(img, u, v): kwarp.warp_bilinear_plain(*a), ("warp", None),
+                (b, hh, ww), (4 * 4 * px, px * WARP_OPS), library))
     return cases
 
 
@@ -177,6 +319,9 @@ def compare(torch, got, ref, kind):
         err = max(errs)
         return err, 0.0, err <= GRID_TOL and all(
             bool(torch.isfinite(g).all()) for g in got)
+    if kind[0] == "warp":
+        err = (got - ref).abs().max().item()
+        return err, 0.0, err <= WARP_TOL and bool(torch.isfinite(got).all())
     d = torch.maximum((got[0] - ref[0]).abs(), (got[1] - ref[1]).abs())
     share = (d > MISMATCH_PX).float().mean().item()
     finite = bool(torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all())
@@ -197,6 +342,30 @@ def make_pipeline(device, plain: bool):
         device=device,
         plain=plain,
     )
+
+
+def count_launches(torch, wrappers, fn):
+    """Run ``fn`` with every launch count set to 0 just before it; returns
+    (its result, {name: launches} read just after)."""
+    for w in set(wrappers.values()):
+        w.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: w.launches for k, w in wrappers.items()}
+
+
+def run_cv(torch, device, frames, use_rlof: bool, plain: bool):
+    """The cv step over ``frames`` (T, H, W) from a zero warm start, as the
+    decoder runs it from its second frame on: [(flow, grid, valid)]."""
+    from ofps_torch.decoders.cv import CvFlowStep
+
+    step = CvFlowStep(H, W, use_rlof=use_rlof, device=device, plain=plain)
+    prev = torch.zeros((H, W, 2), dtype=torch.float32, device=device)
+    outs = []
+    for t in range(1, frames.shape[0]):
+        outs.append(step(frames[t - 1], frames[t], prev))
+        prev = outs[-1][0]
+    return outs
 
 
 def main() -> None:
@@ -223,6 +392,7 @@ def main() -> None:
     from ofps_torch.kernels import build
     from ofps_torch.kernels import flow_refine as kfr
     from ofps_torch.kernels import flow_refine_small as kfs
+    from ofps_torch.kernels import warp as kwarp
 
     t0 = time.perf_counter()
     build.library()
@@ -230,9 +400,11 @@ def main() -> None:
           f"({build.source_digest()})")
     wrappers = {
         "flow_refine": kfr.flow_refine,
+        "flow_refine_2d": kfs.flow_refine_small,
         "flow_refine_small": kfs.flow_refine_small,
         "guard_select": kfs.guard_select,
         "median3x3_uv": kfs.median3x3_uv,
+        "warp_bilinear": kwarp.warp_bilinear,
     }
 
     # 3. kernels vs plain
@@ -241,28 +413,33 @@ def main() -> None:
     results = {}
     for name, items in cases.items():
         worst, share, ok = 0.0, 0.0, True
-        for kcall, pcall, kind_ in items:
-            got, ref = kcall(), pcall()
+        for c in items:
+            got, ref = c.kcall(), c.pcall()
             torch.cuda.synchronize()
-            e, s, good = compare(torch, got, ref, kind_)
+            e, s, good = compare(torch, got, ref, c.kind)
             worst, share, ok = max(worst, e), max(share, s), ok and good
         results[name] = {"max_abs_err": worst, "mismatch_share": share}
-        phase("kernels", f"{name}: {len(items)} case(s) B={batch} "
-              f"max_abs_err={worst:.3e} mismatch_share={share:.2e} "
-              f"{'ok' if ok else 'FAILED'}")
+        notes = [c.note for c in items if c.note]
+        phase("kernels", f"{name}: {len(items)} case(s) "
+              f"{[c.shape for c in items]} max_abs_err={worst:.3e} "
+              f"mismatch_share={share:.2e} {'ok' if ok else 'FAILED'}"
+              + (f" ({'; '.join(notes)})" if notes else ""))
         if not ok:
             fail(f"{name} disagrees with its plain version")
+    for c in cases["warp_bilinear"]:
+        phase("kernels", f"warp_bilinear {c.shape}: grid_sample (library) vs plain "
+              f"max |diff| {(c.library() - c.pcall()).abs().max().item():.3e}")
 
     # 4. the slice
     frames = moving_frames(torch, 8, batch, H, W, device)
     pipe = make_pipeline(device, plain=False)
     state = pipe.init_state(batch, H, W)
     gen = torch.Generator(device=device).manual_seed(SEED)
-    for fn in wrappers.values():
-        fn.launches = 0
-    state, outs = pipe.scan_frames(state, frames, gen)
-    torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in wrappers.items()}
+    (state, outs), counts = count_launches(
+        torch, wrappers, lambda: pipe.scan_frames(state, frames, gen))
+    slice_kernels = ("flow_refine", "flow_refine_small", "guard_select", "median3x3_uv")
+    launches = {k: counts[k] for k in slice_kernels}
+    launches_by_path = {"serving_slice": launches}
     phase("slice", f"1080p B={batch} 8 frames: launches {launches}")
     if min(launches.values()) <= 0:
         fail(f"a kernel of the path was never launched: {launches}")
@@ -300,8 +477,86 @@ def main() -> None:
           f"rot max |diff| {r_err:.3e}")
     if not (g_share <= 1e-2 and r_err <= 1e-4):
         fail("kernel path and plain path disagree")
+    del pipe, pipe_p, state, outs, outs_p, diffs
 
-    # 5. timing
+    # 5. the big levels' 2-D mode through dense_flow (B=1, cold start).
+    from ofps_torch.ops.flow_pyramid import (
+        FlowParams, dense_flow, effective_levels, level_search, uses_axis_sep)
+
+    f0, f1 = frames[0, :1].contiguous(), frames[1, :1].contiguous()
+    big2d = 0
+    for params in (FlowParams(axis_sep=False), FlowParams(search=2)):
+        flow, counts = count_launches(
+            torch, wrappers, lambda p=params: dense_flow(f0, f1, p))
+        levels = effective_levels(params, H, W)
+        sizes = [(H >> lvl, W >> lvl) for lvl in range(levels)]
+        non_sep = [
+            (lvl, hw) for lvl, hw in enumerate(sizes)
+            if not uses_axis_sep(params, level_search(params, lvl, levels), *hw)
+        ]
+        big = [hw for _, hw in non_sep if hw[0] * hw[1] >= params.fuse_min_pixels]
+        small = len(non_sep) - len(big)
+        big_launches = counts["flow_refine_2d"] - small
+        flow_p = dense_flow(f0, f1, params, plain=True)
+        d = (flow - flow_p).abs().max(dim=-1).values
+        share = (d > MISMATCH_PX).float().mean().item()
+        med = flow[0, 64:-64, 64:-64, 0].median().item()
+        phase("refine_2d", f"dense_flow 1080p B=1 axis_sep={params.axis_sep} "
+              f"search={params.search}: 2-D sweep launches {counts['flow_refine_2d']} "
+              f"({big_launches} at the big levels {big}), interior median u "
+              f"{med:.4f} px, kernel vs plain pixels off by >1e-3 px {share:.2e}")
+        if big_launches != len(big) or big_launches <= 0:
+            fail(f"the big levels' 2-D mode did not run its kernel: {counts}")
+        if not (abs(med - SHIFT) <= 0.1 and share <= 1e-2):
+            fail("2-D mode: shift not recovered, or kernel and plain paths disagree")
+        big2d += big_launches
+    launches_by_path["refine_2d"] = {"flow_refine_2d": big2d}
+    del flow, flow_p, d
+
+    # 6. the cv decoder's step, both algorithms, B=1, 8 frames, with a
+    # low-contrast band that the mask drops.
+    cv_frames = with_low_contrast_band(frames[:, 0])
+    cv_kernels = {
+        "cv_sad": ("flow_refine", "flow_refine_small", "guard_select", "median3x3_uv"),
+        "cv_rlof": ("warp_bilinear", "guard_select"),
+    }
+    for path, need in cv_kernels.items():
+        use_rlof = path == "cv_rlof"
+        outs, counts = count_launches(
+            torch, wrappers, lambda r=use_rlof: run_cv(torch, device, cv_frames, r, False))
+        launches_by_path[path] = {k: counts[k] for k in need}
+        meds, n_valid = [], []
+        for _, grid, valid in outs:
+            meds.append(grid[..., 0][valid].median().item() * W)
+            n_valid.append(int(valid.sum().item()))
+        outs_p = run_cv(torch, device, cv_frames, use_rlof, True)
+        same_valid = all(bool(torch.equal(o[2], p[2])) for o, p in zip(outs, outs_p))
+        if use_rlof:
+            err = max((o[0] - p[0]).abs().max().item() for o, p in zip(outs, outs_p))
+            agree, detail = err <= LK_PATH_TOL, f"flow max |diff| {err:.3e} px"
+        else:
+            gd = torch.stack([(o[1] - p[1]).abs() for o, p in zip(outs, outs_p)])
+            g_share = (gd > 1e-5).float().mean().item()
+            agree = g_share <= 1e-2
+            detail = (f"grid entries off by >1e-5 {g_share:.2e} (max "
+                      f"{gd.max().item():.3e} normalized)")
+        phase("cv", f"{path} 1080p 7 steps: launches {launches_by_path[path]}, "
+              f"median u*W of the valid cells per step {[round(m, 4) for m in meds]} "
+              f"(expect {SHIFT}), valid cells {n_valid} of "
+              f"{outs[0][2].numel()}; kernel vs plain path: {detail}, "
+              f"valid cells equal={same_valid}")
+        if min(counts[k] for k in need) <= 0:
+            fail(f"{path}: a kernel of the path was never launched: {counts}")
+        if not all(0 < n < outs[0][2].numel() for n in n_valid):
+            fail(f"{path}: the contrast mask kept none or all of the cells: {n_valid}")
+        if not all(abs(m - SHIFT) <= CV_PAN_TOL for m in meds):
+            fail(f"{path}: 3 px pan not recovered: {meds}")
+        if not (agree and same_valid):
+            fail(f"{path}: kernel path and plain path disagree")
+        del outs, outs_p
+
+    # 7. timing
+    from ofps_torch.decoders.cv import CvFlowStep
     from ofps_torch.ops.flow_pyramid import dense_flow_warm
 
     step_ms = {}
@@ -336,30 +591,67 @@ def main() -> None:
                   f"{ms:.3f} ms/step ({ms / b:.3f} ms/frame): dense flow "
                   f"{f_ms:.3f} ms, estimator+detector {c_ms:.3f} ms | {smi}")
             del pipe, st, fr, out
-    for name, items in cases.items():
-        kms = [time_ms(torch, k, 20) for k, _, _ in items]
-        pms = [time_ms(torch, p, 5) for _, p, _ in items]
-        results[name].update(ms=sum(kms), plain_ms=sum(pms))
-        phase("timing", f"{name}: kernel {sum(kms):.4f} ms, plain {sum(pms):.4f} ms "
-              f"(sum over its {len(items)} path shape(s), B={batch}; per shape "
-              f"kernel {[round(x, 4) for x in kms]} plain {[round(x, 4) for x in pms]}) | {smi}")
+    cv_ms = {}
+    prev_flow = torch.full((H, W, 2), SHIFT, dtype=torch.float32, device=device)
+    for use_rlof in (False, True):
+        for plain in (False, True):
+            step = CvFlowStep(H, W, use_rlof=use_rlof, device=device, plain=plain)
 
-    if not all(math.isfinite(v) for v in step_ms.values()):
+            def cv_step(s=step):
+                return s(cv_frames[0], cv_frames[1], prev_flow)
+
+            iters = 5 if plain else 10
+            ms = time_ms(torch, cv_step, iters)
+            # Host time to enqueue the same calls: near the device time
+            # when the step is bound by launching its kernels.
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                cv_step()
+            host_ms = (time.perf_counter() - t0) * 1e3 / iters
+            torch.cuda.synchronize()
+            key = f"cv_{'rlof' if use_rlof else 'sad'}_{'plain' if plain else 'kernel'}"
+            cv_ms[key] = ms
+            phase("timing", f"{key} 1080p B=1 {ms:.3f} ms/step (host enqueue "
+                  f"{host_ms:.3f} ms/step) | {smi}")
+    for name, items in cases.items():
+        kms = [time_ms(torch, c.kcall, 20) for c in items]
+        pms = [time_ms(torch, c.pcall, 5) for c in items]
+        lms = [time_ms(torch, c.library, 20) if c.library else None for c in items]
+        bms = [c.bound for c in items]
+        by = ("bytes" if sum(c.bytes_ms for c in items) >= sum(c.ops_ms for c in items)
+              else "operations")
+        lib = sum(lms) if all(x is not None for x in lms) else None
+        results[name].update(ms=sum(kms), plain_ms=sum(pms), bound_ms=sum(bms),
+                             bound_by=by, library_ms=lib,
+                             cases=[list(c.shape) for c in items])
+        phase("timing", f"{name}: kernel {sum(kms):.4f} ms, plain {sum(pms):.4f} ms, "
+              f"bound {sum(bms):.4f} ms ({by}), library "
+              f"{'n/a' if lib is None else f'{lib:.4f} ms'} (sum over {len(items)} "
+              f"case(s); per case {[c.shape for c in items]}: kernel "
+              f"{[round(x, 4) for x in kms]} plain {[round(x, 4) for x in pms]} bound "
+              f"{[round(x, 4) for x in bms]} {[c.bound_by for c in items]} library "
+              f"{[None if x is None else round(x, 4) for x in lms]}) | {smi}")
+
+    if not all(math.isfinite(v) for v in [*step_ms.values(), *cv_ms.values()]):
         fail("non-finite timing")
+    main_path = {"flow_refine_2d": "refine_2d", "warp_bilinear": "cv_rlof"}
     print(json.dumps({"kernels": [
         {
             "name": name,
             "route": "cuda",
             "source": "ofps_torch/" + REPLACES[name][0],
             "replaces": REPLACES[name][1],
-            "launches": launches[name],
-            "max_abs_err": results[name]["max_abs_err"],
-            "ms": results[name]["ms"],
-            "plain_ms": results[name]["plain_ms"],
+            "launches": launches_by_path[main_path.get(name, "serving_slice")][name],
+            "launches_by_path": {
+                p: c[name] for p, c in launches_by_path.items() if name in c},
+            **{k: results[name][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "cases")},
         }
         for name in REPLACES
     ], "step_ms": {f"{p}_B{b}": v for (p, b), v in step_ms.items()},
-        "card": smi}))
+        "cv_step_ms": cv_ms, "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -107,6 +107,12 @@ def _axis_scatter_matrix_np(n: int, g: int):
     return m
 
 
+def _axis_scatter_matrix(n: int, g: int, device) -> torch.Tensor:
+    """(n, g) float32 one-hot map of pixel index -> grid cell on ``device``
+    (round half up of the pixel centre ``(i + 0.5) / n`` times ``g - 1``)."""
+    return torch.from_numpy(_axis_scatter_matrix_np(n, g)).to(device)
+
+
 def grid_scatter_plan_np(h: int, w: int, gh: int, gw: int, border_px: int = 0):
     """Static numpy pieces of the scatter-mean densify.
 

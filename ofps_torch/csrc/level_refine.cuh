@@ -55,8 +55,9 @@ __device__ __forceinline__ float upsampled(const float* __restrict__ c,
   return (wx0 * r0 + wx1 * r1) * t.scale;
 }
 
-// Bilinear sample of img (h x w) at (x + u, y + v), coordinates clamped to
-// the image (ops/image.py warp_bilinear).
+// Bilinear sample of img (h x w, global memory, read-only for the launch)
+// at (x + u, y + v), coordinates clamped to the image (ops/image.py
+// warp_bilinear).  The four taps go through the read-only data cache.
 __device__ __forceinline__ float warp_sample(const float* __restrict__ img,
                                              int h, int w, int y, int x,
                                              float u, float v) {
@@ -66,10 +67,10 @@ __device__ __forceinline__ float warp_sample(const float* __restrict__ img,
   const float fx = sx - x0f, fy = sy - y0f;
   const int x0 = (int)x0f, y0 = (int)y0f;
   const int x1 = min(x0 + 1, w - 1), y1 = min(y0 + 1, h - 1);
-  float r = img[y0 * w + x0] * (1.0f - fx) * (1.0f - fy);
-  r = r + img[y0 * w + x1] * fx * (1.0f - fy);
-  r = r + img[y1 * w + x0] * (1.0f - fx) * fy;
-  r = r + img[y1 * w + x1] * fx * fy;
+  float r = __ldg(img + y0 * w + x0) * (1.0f - fx) * (1.0f - fy);
+  r = r + __ldg(img + y0 * w + x1) * fx * (1.0f - fy);
+  r = r + __ldg(img + y1 * w + x0) * (1.0f - fx) * fy;
+  r = r + __ldg(img + y1 * w + x1) * fx * fy;
   return r;
 }
 

@@ -13,6 +13,7 @@ import torch
 
 from ofps_torch.detectors.block_motion import BlockMotionParams
 from ofps_torch.estimators.almeida import AlmeidaParams
+from ofps_torch.ops.flow_lk import LKParams
 from ofps_torch.ops.flow_pyramid import FlowParams, FrameCache
 from ofps_torch.parallel.stream import StreamState
 
@@ -26,6 +27,10 @@ def flow_params_from_jax(p) -> FlowParams:
     kept = {k: d[k] for k in FlowParams._fields if k in d}
     kept["cost_dtype"] = _DTYPES[np.dtype(d["cost_dtype"]).name]
     return FlowParams(**kept)
+
+
+def lk_params_from_jax(p) -> LKParams:
+    return LKParams(**p._asdict())
 
 
 def almeida_params_from_jax(p) -> AlmeidaParams:

@@ -27,7 +27,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("flow_refine.cu", "flow_refine_small.cu")
+SOURCES = ("flow_refine.cu", "flow_refine_small.cu", "warp.cu")
 HEADERS = ("level_refine.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -50,6 +50,8 @@ _SIGNATURES = {
     "ofps_guard_select": [_P] * 8 + [_I] * 4 + [_P],
     # u, v, u_out, v_out, B, h, w, stream
     "ofps_median3x3": [_P] * 4 + [_I] * 3 + [_P],
+    # img, u, v, out, B, h, w, stream
+    "ofps_warp_bilinear": [_P] * 4 + [_I] * 3 + [_P],
 }
 
 
@@ -69,27 +71,31 @@ def source_digest() -> str:
     return h.hexdigest()[:16]
 
 
+def compile_shared(lib: Path, cmd) -> str:
+    """Run the compiler command ``cmd`` with ``-o`` into a temporary
+    directory beside ``lib``, then rename the result to ``lib`` (so
+    processes building at once never load a half-written library).
+    Returns the compiler's output; raises on a compiler error."""
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=lib.parent) as tmp:
+        tmp_lib = Path(tmp) / lib.name
+        proc = subprocess.run([*cmd, "-o", str(tmp_lib)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"{cmd[0]} failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+            )
+        os.replace(tmp_lib, lib)
+    return proc.stdout + proc.stderr
+
+
 def build(verbose: bool = False) -> Path:
     """Compile the kernels (if this source hash has no library yet) and
     return the library's path.  Raises on any compiler error."""
-    out_dir = BUILD_ROOT / source_digest()
-    lib = out_dir / "libofps_kernels.so"
-    if lib.exists():
-        return lib
-    out_dir.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
-        tmp_lib = Path(tmp) / lib.name
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp_lib)] + [
-            str(CSRC / s) for s in SOURCES
-        ]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-            )
+    lib = BUILD_ROOT / source_digest() / "libofps_kernels.so"
+    if not lib.exists():
+        log = compile_shared(lib, [_nvcc(), *NVCC_FLAGS, *(str(CSRC / s) for s in SOURCES)])
         if verbose:
-            print(proc.stdout + proc.stderr)
-        os.replace(tmp_lib, lib)
+            print(log)
     return lib
 
 

@@ -7,6 +7,8 @@ The Pallas kernel fused the three steps into one launch; here they are
 three kernels launched in a row: the (2s+1)^2 sweep runs once from the warm
 init and once from zero, ``guard_select`` keeps the per-pixel winner, and
 ``median3x3_uv`` filters the result (also after the large levels >= 2).
+The robust LK's coarsest level races its warm and zero inits through the
+same ``guard_select``.
 """
 
 from __future__ import annotations
@@ -74,13 +76,14 @@ def guard_select_plain(a, b, u_w, v_w, u_0, v_0, win: int):
 def guard_select(a, b, u_w, v_w, u_0, v_0, win: int):
     """Per pixel, keep the warm-init solution ``(u_w, v_w)`` unless the
     zero-init one has a strictly smaller box-mean SAD of ``|a - warp(b)|``
-    at its refined flow.  All (B, h, w)."""
+    at its refined flow.  All (..., h, w) of one shape."""
     if not build.on_cuda("guard_select", a):
         return guard_select_plain(a, b, u_w, v_w, u_0, v_0, win)
     build.require_cuda_f32("guard_select", a, b, u_w, v_w, u_0, v_0)
-    if not all(t.shape == a.shape for t in (b, u_w, v_w, u_0, v_0)):
+    if a.dim() < 2 or not all(t.shape == a.shape for t in (b, u_w, v_w, u_0, v_0)):
         raise ValueError("guard_select: shape mismatch")
-    bsz, h, w = a.shape
+    h, w = a.shape[-2:]
+    bsz = a.numel() // (h * w)
     u_out, v_out = torch.empty_like(a), torch.empty_like(a)
     status = build.library().ofps_guard_select(
         a.data_ptr(), b.data_ptr(), u_w.data_ptr(), v_w.data_ptr(),

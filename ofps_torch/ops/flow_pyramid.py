@@ -21,11 +21,21 @@ import torch
 
 from ofps_torch.kernels import flow_refine as kfr
 from ofps_torch.kernels import flow_refine_small as kfs
+from ofps_torch.kernels import warp as kwarp
 from ofps_torch.ops.image import box_filter, build_pyramid, resize_bilinear, warp_bilinear
 
 _BIG = 1e10
 # Per-pixel-of-shift displacement prior, in box-mean cost units.
 _TIE_EPS = np.float32(1e-3)
+
+
+def _warp(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor, plain: bool = False):
+    """Bilinear backward warp of ``img`` (..., H, W) by ``(u, v)``: the
+    kernel of :mod:`ofps_torch.kernels.warp` (its plain version for CPU
+    tensors or with ``plain=True``), at every size."""
+    if plain:
+        return kwarp.warp_bilinear_plain(img, u, v)
+    return kwarp.warp_bilinear(img, u, v)
 
 
 class FlowParams(NamedTuple):

@@ -1,5 +1,5 @@
 """Image ops on ``(..., H, W)`` float32 tensors (port of the subset of
-``ofps_tpu.ops.image`` the serving path runs).
+``ofps_tpu.ops.image`` the serving path and the cv decoder run).
 
 Every function reproduces the JAX op's arithmetic order, so the CPU results
 agree with ``ofps_tpu`` to float32 rounding.
@@ -12,6 +12,12 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def rgb_to_gray(rgb: torch.Tensor) -> torch.Tensor:
+    """(..., H, W, 3) uint8/float -> (..., H, W) float32 luma (BT.601)."""
+    rgb = rgb.to(torch.float32)
+    return 0.299 * rgb[..., 0] + 0.587 * rgb[..., 1] + 0.114 * rgb[..., 2]
 
 
 def avg_pool2(x: torch.Tensor) -> torch.Tensor:
@@ -79,6 +85,35 @@ def resize_bilinear(x: torch.Tensor, oh: int, ow: int) -> torch.Tensor:
     return x
 
 
+@functools.lru_cache(maxsize=None)
+def _interp_matrix_np(n: int, on: int) -> np.ndarray:
+    """(on, n) two-tap bilinear interpolation matrix (half-pixel centres,
+    edge clamp), as ``ofps_tpu.ops.image._interp_matrix`` builds it.  Unlike
+    :func:`resize_matrix_np` it never widens the kernel when downsampling."""
+    idx = np.arange(on)
+    src = (idx + 0.5) * (n / on) - 0.5
+    lo = np.clip(np.floor(src).astype(int), 0, n - 1)
+    hi = np.clip(lo + 1, 0, n - 1)
+    whi = np.clip(src - lo, 0.0, 1.0)
+    m = np.zeros((on, n), np.float32)
+    m[idx, lo] += 1.0 - whi
+    m[idx, hi] += whi
+    return m
+
+
+@functools.lru_cache(maxsize=64)
+def _interp_matrix(n: int, on: int, device: str) -> torch.Tensor:
+    return torch.from_numpy(_interp_matrix_np(n, on)).to(device)
+
+
+def resize_bilinear_matmul(x: torch.Tensor, oh: int, ow: int) -> torch.Tensor:
+    """Bilinear resize of (..., H, W) as two matmuls with the two-tap
+    matrix (``ofps_tpu.ops.image.resize_bilinear_matmul``): rows first."""
+    h, w = x.shape[-2], x.shape[-1]
+    y = torch.matmul(_interp_matrix(h, oh, str(x.device)), x)
+    return torch.matmul(y, _interp_matrix(w, ow, str(x.device)).T)
+
+
 def shift2d(x: torch.Tensor, dx: int, dy: int, fill: float = 0.0) -> torch.Tensor:
     """out[..., y, x] = in[..., y + dy, x + dx] with constant fill."""
     h, w = x.shape[-2], x.shape[-1]
@@ -99,6 +134,32 @@ def box_filter(x: torch.Tensor, win: int) -> torch.Tensor:
     for d in range(-r, r + 1):
         out2 = out2 + shift2d(out, 0, d)
     return out2 / float(win * win)
+
+
+_SOBEL_D5 = (-1.0, -2.0, 0.0, 2.0, 1.0)
+
+
+def sobel_xy(x: torch.Tensor) -> torch.Tensor:
+    """Mixed derivative d/dx d/dy with the 5-tap [-1, -2, 0, 2, 1] in both
+    axes (zero-filled shifts; the zero tap is kept, as the JAX op keeps
+    it)."""
+    out = torch.zeros_like(x)
+    for i, k in enumerate(_SOBEL_D5):
+        out = out + k * shift2d(x, i - 2, 0)
+    out2 = torch.zeros_like(out)
+    for i, k in enumerate(_SOBEL_D5):
+        out2 = out2 + k * shift2d(out, 0, i - 2)
+    return out2
+
+
+def dilate_disk(mask: torch.Tensor, radius: int) -> torch.Tensor:
+    """Binary dilation with a disk structuring element (zero outside)."""
+    acc = torch.zeros_like(mask)
+    for dy in range(-radius, radius + 1):
+        for dx in range(-radius, radius + 1):
+            if dx * dx + dy * dy <= radius * radius:
+                acc = torch.maximum(acc, shift2d(mask, dx, dy))
+    return acc
 
 
 def warp_bilinear(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -60,7 +60,7 @@ class StreamOutputs(NamedTuple):
 
 class StreamPipeline:
     """A configured batched pipeline over B streams of (H, W) video on one
-    ``device``.
+    ``device`` (default the CUDA card; raises where there is none).
 
     ``emit_dense_flow=False`` is the serving configuration: the finest level
     emits the grid sums directly and no full-resolution flow is stored.
@@ -76,7 +76,7 @@ class StreamPipeline:
         flow_params: FlowParams = FlowParams(),
         grid_wh: Optional[Tuple[int, int]] = None,
         emit_dense_flow: bool = True,
-        device="cpu",
+        device="cuda",
         plain: bool = False,
     ):
         self.camera = camera

@@ -238,3 +238,24 @@ def test_kernels_match_plain_on_cuda():
     ref = kfr.flow_refine_plain(a, b, uc, vc, 5, grid_plan=plan)
     for g, r, n in zip(got, ref, (240, 135)):
         assert ((g - r).abs() / (plan.counts * n)).max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_refine_2d_at_big_levels_on_cuda():
+    """On the card: the 2-D sweep kernel at the big-level kernel's 2-D mode
+    shapes, 1080x1920 with s=1 from 540x960 flow (``axis_sep=False``) and
+    540x960 with s=2 from 270x480 (``search=2``), against its plain
+    version: under 0.1% of pixels off by more than 1e-3 px (float32
+    near-ties)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    for (h, w), s in (((1080, 1920), 1), ((540, 960), 2)):
+        i1, i2, flow = _scene(6, h=h, w=w, batch=1)
+        a, b = _t(i1).to(dev), _t(i2).to(dev)
+        uc = _t(flow[:, ::2, ::2, 0] * 0.5).to(dev)
+        vc = _t(flow[:, ::2, ::2, 1] * 0.5).to(dev)
+        got = kfs.flow_refine_small(a, b, uc, vc, s, 5)
+        ref = kfs.flow_refine_small_plain(a, b, uc, vc, s, 5)
+        d = torch.maximum((got[0] - ref[0]).abs(), (got[1] - ref[1]).abs())
+        assert (d > 1e-3).float().mean().item() < 1e-3

@@ -104,3 +104,39 @@ def test_median3x3_exact():
     x = np.random.default_rng(7).standard_normal((2, 33, 60)).astype(np.float32)
     ref = np.asarray(jimg.median3x3(jnp.asarray(x)))
     np.testing.assert_array_equal(timg.median3x3(_t(x)).numpy(), ref)
+
+
+def test_rgb_to_gray_exact():
+    rgb = np.random.default_rng(8).integers(0, 256, (2, 24, 40, 3)).astype(np.uint8)
+    ref = np.asarray(jimg.rgb_to_gray(jnp.asarray(rgb)))
+    np.testing.assert_array_equal(timg.rgb_to_gray(torch.from_numpy(rgb)).numpy(), ref)
+
+
+def test_sobel_xy_exact():
+    """Same taps in the same order, zero tap and zero fill included."""
+    img = _image(9, (2, 40, 56))
+    ref = np.asarray(jimg.sobel_xy(jnp.asarray(img)))
+    np.testing.assert_array_equal(timg.sobel_xy(_t(img)).numpy(), ref)
+
+
+@pytest.mark.parametrize("radius", [1, 2])
+def test_dilate_disk_exact(radius):
+    mask = (np.random.default_rng(10).random((2, 40, 56)) > 0.97).astype(np.float32)
+    ref = np.asarray(jimg.dilate_disk(jnp.asarray(mask), radius))
+    np.testing.assert_array_equal(timg.dilate_disk(_t(mask), radius).numpy(), ref)
+
+
+@pytest.mark.parametrize(
+    "shape,out", [((96, 128), (24, 32)), ((540, 960), (33, 60)), ((48, 64), (96, 128))]
+)
+def test_resize_bilinear_matmul_matches(shape, out):
+    """The two-tap matrix resize (the LK warm-start downsample and its
+    inter-level upsample) equals the JAX op; on a large downsample it is NOT
+    the antialiased ``resize_bilinear`` (they differ by > 1 on unit noise)."""
+    x = np.random.default_rng(11).standard_normal((2,) + shape).astype(np.float32)
+    ref = np.asarray(jimg.resize_bilinear_matmul(jnp.asarray(x), *out))
+    np.testing.assert_allclose(
+        timg.resize_bilinear_matmul(_t(x), *out).numpy(), ref, rtol=0, atol=1e-6
+    )
+    if out[0] * 4 <= shape[0]:
+        assert np.abs(timg.resize_bilinear(_t(x), *out).numpy() - ref).max() > 1.0

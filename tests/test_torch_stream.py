@@ -56,7 +56,8 @@ def _pipes():
     jp = JPipe(JCam.create(W / H, 60.0), [j_est("almeida")], j_det("block_motion"),
                flow_params=JPARAMS, emit_dense_flow=False)
     tp = TPipe(TCam.create(W / H, 60.0), [t_est("almeida")], t_det("block_motion"),
-               flow_params=interop.flow_params_from_jax(JPARAMS), emit_dense_flow=False)
+               flow_params=interop.flow_params_from_jax(JPARAMS), emit_dense_flow=False,
+               device="cpu")
     return jp, tp
 
 
@@ -131,6 +132,17 @@ def test_interop_params():
     assert ap.num_iters == 50 and ap.ransac_samples == 1000
     bp = interop.block_motion_params_from_jax(BlockMotionParams(min_size=0.1))
     assert bp.min_size == 0.1
+
+
+def test_pipeline_defaults_to_cuda():
+    """With no device named, the pipeline takes the CUDA card, and raises
+    where there is none rather than running on the CPU."""
+    if torch.cuda.is_available():
+        torch.backends.cuda.matmul.allow_tf32 = False
+        assert TPipe(TCam.create(W / H, 60.0)).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            TPipe(TCam.create(W / H, 60.0))
 
 
 def test_device_policy():
