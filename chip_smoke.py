@@ -28,7 +28,10 @@ Phases, each printing its own line; any failure exits non-zero:
    and keeps others, the 3 px pan in the valid cells and the plain path;
 7. timing: ms/step of the serving step at B=1, 4, 8 and of the cv step for
    both algorithms, kernel and plain paths; each kernel against its plain
-   version and, where one exists, one PyTorch library call (CUDA events).
+   version and, where one exists, one PyTorch library call (CUDA events
+   around back-to-back calls, ``ms``), and each kernel and library call
+   alone on the device (``device_ms``: a CUDA graph of N calls replayed,
+   so the host's launch cost drops out).
 
 Prints one JSON line of per-kernel results, the ``nvidia-smi`` line, then,
 as the last line, ``{"ok": true, "device": {...}}``.
@@ -155,6 +158,32 @@ def time_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, n: int = 20, reps: int = 5) -> float:
+    """Device ms per call of ``fn``: N calls captured in one CUDA graph
+    after a warm-up, the graph replayed ``reps`` times between two CUDA
+    events.  The host's per-call cost (Python, ctypes, allocation) is not in
+    it; inputs stay warm in L2 where they fit (50 MB)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (n * reps)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
 def sweep_cost(batch, h, w, hc, wc, n_cand, win, out_bytes=None):
     """(bytes, ops) of one refine launch at a (h, w) level from a (hc, wc)
     flow: i1, i2, the two flow planes read once, the two outputs written
@@ -242,10 +271,10 @@ def kernel_cases(torch, device, batch: int):
     )
     cases = {k: [] for k in REPLACES}
     # The serving step's axis-separable levels (B=batch): 1080x1920 with
-    # the grid, 540x960 and 135x240; the cv block matcher's (B=1, flow
-    # mode): 1080x1920 and 270x480.
-    for lvl, b, grid in ((0, batch, plan), (1, batch, None), (3, batch, None),
-                         (0, 1, None), (2, 1, None)):
+    # the grid, 540x960, 270x480 and 135x240; the cv block matcher's (B=1,
+    # flow mode): 1080x1920 and 270x480.
+    for lvl, b, grid in ((0, batch, plan), (1, batch, None), (2, batch, None),
+                         (3, batch, None), (0, 1, None), (2, 1, None)):
         uc, vc = flow_at(lvl + 1, b)
         args = (*frame_pair(lvl, b), uc, vc, win, bf16, grid)
         out_bytes = None if grid is None else 8 * b * gh_gw[0] * gh_gw[1]
@@ -307,6 +336,23 @@ def kernel_cases(torch, device, batch: int):
                 lambda a=(img, u, v): kwarp.warp_bilinear_plain(*a), ("warp", None),
                 (b, hh, ww), (4 * 4 * px, px * WARP_OPS), library))
     return cases
+
+
+def rounded(xs, nd: int = 4):
+    return [None if x is None else round(x, nd) for x in xs]
+
+
+def time_cases(torch, items):
+    """Per case: the kernel's and the library call's ms (CUDA events around
+    back-to-back calls) and device ms (:func:`device_ms`)."""
+    out = {"ms": [], "device_ms": [], "library_ms": [], "library_device_ms": []}
+    for c in items:
+        out["ms"].append(time_ms(torch, c.kcall, 20))
+        out["device_ms"].append(device_ms(torch, c.kcall))
+        lib = c.library
+        out["library_ms"].append(time_ms(torch, lib, 20) if lib else None)
+        out["library_device_ms"].append(device_ms(torch, lib) if lib else None)
+    return out
 
 
 def compare(torch, got, ref, kind):
@@ -614,24 +660,34 @@ def main() -> None:
             cv_ms[key] = ms
             phase("timing", f"{key} 1080p B=1 {ms:.3f} ms/step (host enqueue "
                   f"{host_ms:.3f} ms/step) | {smi}")
+    timings = {}
     for name, items in cases.items():
-        kms = [time_ms(torch, c.kcall, 20) for c in items]
+        t = timings[name] = time_cases(torch, items)
         pms = [time_ms(torch, c.pcall, 5) for c in items]
-        lms = [time_ms(torch, c.library, 20) if c.library else None for c in items]
         bms = [c.bound for c in items]
         by = ("bytes" if sum(c.bytes_ms for c in items) >= sum(c.ops_ms for c in items)
               else "operations")
-        lib = sum(lms) if all(x is not None for x in lms) else None
-        results[name].update(ms=sum(kms), plain_ms=sum(pms), bound_ms=sum(bms),
-                             bound_by=by, library_ms=lib,
-                             cases=[list(c.shape) for c in items])
-        phase("timing", f"{name}: kernel {sum(kms):.4f} ms, plain {sum(pms):.4f} ms, "
+        lib = sum(t["library_ms"]) if items[0].library else None
+        lib_dev = sum(t["library_device_ms"]) if items[0].library else None
+        results[name].update(ms=sum(t["ms"]), device_ms=sum(t["device_ms"]),
+                             plain_ms=sum(pms), bound_ms=sum(bms), bound_by=by,
+                             library_ms=lib, library_device_ms=lib_dev,
+                             cases=[list(c.shape) for c in items],
+                             case_ms=t["ms"], case_device_ms=t["device_ms"])
+        phase("timing", f"{name}: kernel {sum(t['ms']):.4f} ms (device "
+              f"{sum(t['device_ms']):.4f} ms), plain {sum(pms):.4f} ms, "
               f"bound {sum(bms):.4f} ms ({by}), library "
-              f"{'n/a' if lib is None else f'{lib:.4f} ms'} (sum over {len(items)} "
-              f"case(s); per case {[c.shape for c in items]}: kernel "
-              f"{[round(x, 4) for x in kms]} plain {[round(x, 4) for x in pms]} bound "
-              f"{[round(x, 4) for x in bms]} {[c.bound_by for c in items]} library "
-              f"{[None if x is None else round(x, 4) for x in lms]}) | {smi}")
+              f"{'n/a' if lib is None else f'{lib:.4f} ms (device {lib_dev:.4f} ms)'} "
+              f"(sum over {len(items)} case(s); per case {[c.shape for c in items]}: "
+              f"kernel {rounded(t['ms'])} device {rounded(t['device_ms'])} plain "
+              f"{rounded(pms)} bound {rounded(bms)} {[c.bound_by for c in items]} "
+              f"library {rounded(t['library_ms'])} device "
+              f"{rounded(t['library_device_ms'])}) | {smi}")
+    warp = timings["warp_bilinear"]
+    loses = [tuple(c.shape) for c, k, lib in zip(
+        cases["warp_bilinear"], warp["device_ms"], warp["library_device_ms"]) if k > lib]
+    phase("timing", f"warp_bilinear device time loses to grid_sample's at "
+          f"{loses if loses else 'no shape'} | {smi}")
 
     if not all(math.isfinite(v) for v in [*step_ms.values(), *cv_ms.values()]):
         fail("non-finite timing")
@@ -646,8 +702,9 @@ def main() -> None:
             "launches_by_path": {
                 p: c[name] for p, c in launches_by_path.items() if name in c},
             **{k: results[name][k] for k in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "cases")},
+                "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library_device_ms", "cases", "case_ms",
+                "case_device_ms")},
         }
         for name in REPLACES
     ], "step_ms": {f"{p}_B{b}": v for (p, b), v in step_ms.items()},

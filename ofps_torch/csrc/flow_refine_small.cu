@@ -8,7 +8,8 @@
 //   mean, edge-padded candidates, 1e-3/px prior, 1e10 for out-of-image
 //   centres), the first minimum in dy-outer order (strict <) and a per-axis
 //   parabola step (ops/flow_pyramid.py _level_refine).  The coarser level's
-//   flow is upsampled in the kernel.
+//   flow is upsampled in the kernel.  It also serves the big levels' 2-D
+//   mode (ofps_tpu/pallas/flow_refine.py:396-480).
 // * guard_kernel: per pixel, keeps the warm-init solution unless the
 //   zero-init one has a strictly smaller box-mean SAD of |a - warp(b)| at
 //   its refined flow (ops/flow_pyramid.py _coarse_guard).  The TPU kernel
@@ -17,12 +18,21 @@
 // * median_kernel: 3x3 median with edge clamping of both flow planes
 //   (ops/image.py median3x3), also used after the large levels >= 2.
 //
-// What bounds them on the H100: the levels they serve are small (33 x 60
-// and 67 x 120 at 1080p), so a launch is a few CTAs and the time is launch
-// latency plus, for the s=6 sweep, ~4.2k shared-memory cost taps per
-// pixel.  Design: the same 32 x 8 tile and shared-memory halo as
-// flow_refine.cu (halo win/2 + s), so the sweep never touches global
-// memory; the guard and median read global memory directly (a few KB).
+// What bounds the sweep on the H100: the coarse levels are small (33 x 60
+// at B=4 and 67 x 120 at B=1 are ~8k pixels), so a one-thread-per-pixel
+// sweep is a few dozen CTAs, each as long as one thread's 169-candidate
+// serial stream.  Design: the candidates are spread over the warps of a
+// CTA (one warp per candidate at a time, its cost plane over the tile
+// built separably in the warp's own shared-memory buffers,
+// level_refine.cuh), every cost is kept in shared memory, and the argmin
+// runs over the stored costs by (cost, dy-outer index): the smallest index
+// among equal minima, which is the strict-< first-minimum scan.  The
+// parabola reads the best candidate's neighbours from the same store.
+// Tiles: 8 x 8 pixels and 16 warps for s >= 3 (169 costs x 64 px = 43 KB
+// at s = 6; 160 CTAs at 33 x 60 B=4, 135 at 67 x 120 B=1) and 32 x 8 with 8
+// warps for s <= 2 (the big levels' 2-D mode at 1080x1920 s=1 and 540x960
+// s=2, and 67 x 120 s=1).
+// The guard and median read global memory directly (a few KB).
 
 #include "level_refine.cuh"
 
@@ -30,53 +40,113 @@ using namespace ofps;
 
 namespace {
 
-__global__ void __launch_bounds__(TILE_THREADS)
+template <int TW, int TH, int r, int NT>
+__global__ void __launch_bounds__(NT)
 refine_2d_kernel(const float* __restrict__ i1, const float* __restrict__ i2,
                  const float* __restrict__ uc, const float* __restrict__ vc,
                  Upsample up, float* __restrict__ u_out,
-                 float* __restrict__ v_out, int h, int w, int s, int r,
-                 int round_bf16) {
-  extern __shared__ float smem[];
-  const int R = r + s;
-  const int b = blockIdx.z;
+                 float* __restrict__ v_out, int s, int round_bf16) {
+  constexpr int P = TW * TH;  // pixels of the tile
+  constexpr int kWarps = NT / 32;
+  static_assert(NT % P == 0, "NT / P threads per tile pixel in the argmin");
+  constexpr int TPP = NT / P;
+  const Geom g{TW, TH, r, r + s};
+  const int side = 2 * s + 1, K = side * side;
+  // Each warp has its own diff and row-sum planes; every cost follows.
+  extern __shared__ float4 smem4[];
+  const TileSmem t = carve(reinterpret_cast<float*>(smem4), g, kWarps);
+  float* costs = t.rest;  // [K][TH][TW]
+
+  const int h = up.h, w = up.w, b = blockIdx.z, tid = threadIdx.x;
   const size_t plane = (size_t)h * w, cplane = (size_t)up.hc * up.wc;
   i1 += b * plane;
   i2 += b * plane;
   uc += b * cplane;
   vc += b * cplane;
+  const int oy = blockIdx.y * TH, ox = blockIdx.x * TW;
+  stage<NT>(g, t, i1, i2, uc, vc, up, oy, ox);
 
-  Tiles t{smem, smem + (TILE_H + 2 * R) * (TILE_W + 2 * R), R, r,
-          (int)blockIdx.y * TILE_H, (int)blockIdx.x * TILE_W};
-  load_tiles(t, i1, i2, uc, vc, up, h, w);
-  __syncthreads();
-
-  const int lx = threadIdx.x, ly = threadIdx.y;
-  const int x = t.ox + lx, y = t.oy + ly;
-  if (x >= w || y >= h) return;
-
-  const int side = 2 * s + 1;
-  float best_c = cand_cost(t, y, x, ly, lx, -s, -s, h, w, round_bf16);
-  int best_s = 0;
-  for (int k = 1; k < side * side; ++k) {
-    const float c =
-        cand_cost(t, y, x, ly, lx, k % side - s, k / side - s, h, w, round_bf16);
-    if (c < best_c) {
-      best_c = c;
-      best_s = k;
+  // Each warp sweeps candidates warp, warp + kWarps, ... through its own diff
+  // and row-sum planes; only __syncwarp orders its passes.
+  const int warp = tid / 32, lane = tid % 32;
+  float* myD = t.sD + warp * g.d_floats();
+  float* myH = t.sH + warp * g.h_floats();
+  const float inv_area = 1.0f / (float)((2 * r + 1) * (2 * r + 1));
+  constexpr int groups = TW / 4;
+  for (int k = warp; k < K; k += kWarps) {
+    const int dx = k % side - s, dy = k / side - s;
+    diff_pass(g, t.sA, t.sW, myD, dx, dy, oy, ox, h, w, round_bf16, lane, 32);
+    __syncwarp();
+    rows_pass(g, myD, myH, lane, 32);
+    __syncwarp();
+    const float tie = tie_of(dx, dy);
+    for (int i = lane; i < TH * groups; i += 32) {
+      const int ly = i / groups, c4 = (i - ly * groups) * 4;
+      *reinterpret_cast<float4*>(costs + k * P + ly * TW + c4) =
+          cols_cost(g, myH, ly, c4, oy + ly, ox + c4, dx, dy, h, w, inv_area, tie);
     }
   }
-  const int bx = best_s % side - s, by = best_s / side - s;
-  auto cost = [&](int dx, int dy) {
-    return cand_cost(t, y, x, ly, lx, dx, dy, h, w, round_bf16);
-  };
-  const float cxm = cost(bx - (bx > -s ? 1 : 0), by);
-  const float cxp = cost(bx + (bx < s ? 1 : 0), by);
-  const float cym = cost(bx, by - (by > -s ? 1 : 0));
-  const float cyp = cost(bx, by + (by < s ? 1 : 0));
-  const float sub_x = abs(bx) == s ? 0.0f : parabola(cxm, best_c, cxp);
-  const float sub_y = abs(by) == s ? 0.0f : parabola(cym, best_c, cyp);
-  u_out[b * plane + (size_t)y * w + x] = upsampled(uc, up, y, x) + ((float)bx + sub_x);
-  v_out[b * plane + (size_t)y * w + x] = upsampled(vc, up, y, x) + ((float)by + sub_y);
+  __syncthreads();
+
+  // Argmin by (cost, k): TPP adjacent threads scan interleaved k, then
+  // combine with shuffles.
+  const int p = tid / TPP, sub = tid % TPP;
+  float bc = INFINITY;
+  int bk = K;
+  for (int k = sub; k < K; k += TPP) {
+    const float c = costs[k * P + p];
+    if (c < bc) {
+      bc = c;
+      bk = k;
+    }
+  }
+#pragma unroll
+  for (int off = TPP / 2; off >= 1; off /= 2) {
+    const float oc = __shfl_xor_sync(0xffffffffu, bc, off);
+    const int ok = __shfl_xor_sync(0xffffffffu, bk, off);
+    if (oc < bc || (oc == bc && ok < bk)) {
+      bc = oc;
+      bk = ok;
+    }
+  }
+  const int ly = p / TW, lx = p % TW, y = oy + ly, x = ox + lx;
+  if (sub != 0 || y >= h || x >= w) return;
+  const int bx = bk % side - s, by = bk / side - s;
+  const float cxm = costs[(bk - (bx > -s ? 1 : 0)) * P + p];
+  const float cxp = costs[(bk + (bx < s ? 1 : 0)) * P + p];
+  const float cym = costs[(bk - (by > -s ? side : 0)) * P + p];
+  const float cyp = costs[(bk + (by < s ? side : 0)) * P + p];
+  const float sub_x = abs(bx) == s ? 0.0f : parabola(cxm, bc, cxp);
+  const float sub_y = abs(by) == s ? 0.0f : parabola(cym, bc, cyp);
+  const Tap ty = t.rt[ly + g.R], tx = t.ct[lx + g.R];
+  u_out[b * plane + (size_t)y * w + x] = upsampled(uc, up.wc, ty, tx, up.scale) + ((float)bx + sub_x);
+  v_out[b * plane + (size_t)y * w + x] = upsampled(vc, up.wc, ty, tx, up.scale) + ((float)by + sub_y);
+}
+
+template <int TW, int TH, int r, int NT>
+int launch_2d(const float* i1, const float* i2, const float* uc,
+              const float* vc, const Upsample& up, float* u_out, float* v_out,
+              int B, int s, int round_bf16, cudaStream_t stream) {
+  const int K = (2 * s + 1) * (2 * s + 1);
+  const size_t smem =
+      sizeof(float) * (tile_smem_floats(Geom{TW, TH, r, r + s}, NT / 32) + K * TW * TH);
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(refine_2d_kernel<TW, TH, r, NT>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((up.w + TW - 1) / TW, (up.h + TH - 1) / TH, B);
+  refine_2d_kernel<TW, TH, r, NT><<<grid, NT, smem, stream>>>(
+      i1, i2, uc, vc, up, u_out, v_out, s, round_bf16);
+  return (int)cudaGetLastError();
+}
+
+template <int r>
+int launch_2d_r(const float* i1, const float* i2, const float* uc,
+                const float* vc, const Upsample& up, float* u_out,
+                float* v_out, int B, int s, int round_bf16,
+                cudaStream_t stream) {
+  if (s >= 3)
+    return launch_2d<8, 8, r, 512>(i1, i2, uc, vc, up, u_out, v_out, B, s, round_bf16, stream);
+  return launch_2d<32, 8, r, 256>(i1, i2, uc, vc, up, u_out, v_out, B, s, round_bf16, stream);
 }
 
 // Box-mean SAD of |a - warp(b, (U, V))| at (y, x), zero-padded taps.
@@ -106,14 +176,14 @@ __device__ __forceinline__ float guard_sad(const float* __restrict__ a,
   return vs / (win * win);
 }
 
-__global__ void __launch_bounds__(TILE_THREADS)
+__global__ void __launch_bounds__(kFlatW * kFlatH)
 guard_kernel(const float* __restrict__ a, const float* __restrict__ b,
              const float* __restrict__ u_w, const float* __restrict__ v_w,
              const float* __restrict__ u_0, const float* __restrict__ v_0,
              float* __restrict__ u_out, float* __restrict__ v_out, int h, int w,
              int r) {
-  const int x = blockIdx.x * TILE_W + threadIdx.x;
-  const int y = blockIdx.y * TILE_H + threadIdx.y;
+  const int x = blockIdx.x * kFlatW + threadIdx.x;
+  const int y = blockIdx.y * kFlatH + threadIdx.y;
   if (x >= w || y >= h) return;
   const size_t off = blockIdx.z * (size_t)h * w;
   a += off;
@@ -149,12 +219,12 @@ __device__ __forceinline__ float median9(const float* __restrict__ src, int h,
   return p[4];
 }
 
-__global__ void __launch_bounds__(TILE_THREADS)
+__global__ void __launch_bounds__(kFlatW * kFlatH)
 median_kernel(const float* __restrict__ u, const float* __restrict__ v,
               float* __restrict__ u_out, float* __restrict__ v_out, int h,
               int w) {
-  const int x = blockIdx.x * TILE_W + threadIdx.x;
-  const int y = blockIdx.y * TILE_H + threadIdx.y;
+  const int x = blockIdx.x * kFlatW + threadIdx.x;
+  const int y = blockIdx.y * kFlatH + threadIdx.y;
   if (x >= w || y >= h) return;
   const size_t off = blockIdx.z * (size_t)h * w;
   u_out[off + (size_t)y * w + x] = median9(u + off, h, w, y, x);
@@ -162,7 +232,7 @@ median_kernel(const float* __restrict__ u, const float* __restrict__ v,
 }
 
 dim3 tile_grid(int B, int h, int w) {
-  return dim3((w + TILE_W - 1) / TILE_W, (h + TILE_H - 1) / TILE_H, B);
+  return dim3((w + kFlatW - 1) / kFlatW, (h + kFlatH - 1) / kFlatH, B);
 }
 
 }  // namespace
@@ -175,14 +245,19 @@ extern "C" int ofps_flow_refine_small(const float* i1, const float* i2,
                                       int B, int h, int w, int hc, int wc,
                                       int search, int win, int round_bf16,
                                       void* stream) {
-  const int r = win / 2;
-  const size_t smem = tiles_smem_bytes(r + search, r);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  if (search < 0) return (int)cudaErrorInvalidValue;
   const Upsample up{yi, yw, xi, xw, h, w, hc, wc, scale};
-  refine_2d_kernel<<<tile_grid(B, h, w), dim3(TILE_W, TILE_H), smem,
-                     (cudaStream_t)stream>>>(i1, i2, uc, vc, up, u_out, v_out,
-                                             h, w, search, r, round_bf16);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (win) {
+    case 3:
+      return launch_2d_r<1>(i1, i2, uc, vc, up, u_out, v_out, B, search, round_bf16, st);
+    case 5:
+      return launch_2d_r<2>(i1, i2, uc, vc, up, u_out, v_out, B, search, round_bf16, st);
+    case 7:
+      return launch_2d_r<3>(i1, i2, uc, vc, up, u_out, v_out, B, search, round_bf16, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int ofps_guard_select(const float* a, const float* b,
@@ -190,7 +265,7 @@ extern "C" int ofps_guard_select(const float* a, const float* b,
                                  const float* u_0, const float* v_0,
                                  float* u_out, float* v_out, int B, int h,
                                  int w, int win, void* stream) {
-  guard_kernel<<<tile_grid(B, h, w), dim3(TILE_W, TILE_H), 0,
+  guard_kernel<<<tile_grid(B, h, w), dim3(kFlatW, kFlatH), 0,
                  (cudaStream_t)stream>>>(a, b, u_w, v_w, u_0, v_0, u_out,
                                          v_out, h, w, win / 2);
   return (int)cudaGetLastError();
@@ -199,7 +274,7 @@ extern "C" int ofps_guard_select(const float* a, const float* b,
 extern "C" int ofps_median3x3(const float* u, const float* v, float* u_out,
                               float* v_out, int B, int h, int w,
                               void* stream) {
-  median_kernel<<<tile_grid(B, h, w), dim3(TILE_W, TILE_H), 0,
+  median_kernel<<<tile_grid(B, h, w), dim3(kFlatW, kFlatH), 0,
                   (cudaStream_t)stream>>>(u, v, u_out, v_out, h, w);
   return (int)cudaGetLastError();
 }

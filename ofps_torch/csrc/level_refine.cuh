@@ -1,17 +1,29 @@
 // Shared device code of the flow-refine kernels: in-kernel bilinear flow
-// upsample, exact bilinear warp, and the SAD cost of one integer candidate.
+// upsample, exact bilinear warp, and the SAD cost plane of one integer
+// candidate over a tile, built separably in shared memory.
 //
 // One algorithm with the plain PyTorch versions (ofps_torch/ops/
 // flow_pyramid.py _level_refine, ops/image.py warp_bilinear/box_filter):
 // every expression below keeps their operand order, and the library is
 // built with -fmad=false, so each product and sum rounds as theirs does.
+// The box mean multiplies by 1/win^2, as PyTorch computes a CUDA tensor
+// divided by a host scalar.
 //
-// Tile scheme: one CTA of TILE_W x TILE_H threads owns a TILE_W x TILE_H
-// output tile, one pixel per thread.  It first builds in shared memory the
-// warped i2 over the tile plus an R = win/2 + search halo (each halo pixel
-// warped with its own upsampled flow, coordinates clamped to the image:
-// that clamp IS the edge padding of the candidate windows), and i1 over the
-// tile plus a win/2 halo.  Every cost tap then reads shared memory.
+// Tile scheme: a CTA owns a TW x TH output tile.  stage() builds in shared
+// memory the warped i2 over the tile plus an R = win/2 + search halo (each
+// halo pixel warped with its own upsampled flow, coordinates clamped to the
+// image: that clamp IS the edge padding of the candidate windows) and i1
+// over the tile plus a win/2 halo.  A candidate's cost plane then takes
+// three passes, each reading the previous one from shared memory:
+//
+//   diff:  d = |i1 - shifted warp| (rounded to bf16) once per pixel of the
+//          tile plus the win/2 halo; 0 outside the image;
+//   rows:  hs = 0 + d(x - r) + ... + d(x + r), four columns per item;
+//   cols:  vs = 0 + hs(y - r) + ... + hs(y + r), times 1/win^2, plus the
+//          1e-3/px prior; 1e10 where the candidate centre leaves the image.
+//
+// These are box_filter's additions in box_filter's order (no running sums,
+// which would round differently).
 
 #pragma once
 
@@ -20,9 +32,8 @@
 
 namespace ofps {
 
-constexpr int TILE_W = 32;
-constexpr int TILE_H = 8;
-constexpr int TILE_THREADS = TILE_W * TILE_H;
+// Block of the one-thread-per-pixel kernels (warp, guard, median).
+constexpr int kFlatW = 32, kFlatH = 8;
 constexpr float kBig = 1e10f;
 constexpr float kTieEps = 1e-3f;
 
@@ -42,17 +53,26 @@ struct Upsample {
   float scale;
 };
 
-// Flow plane `c` (hc x wc) upsampled at full-resolution pixel (y, x): the
-// row pass first, then the column pass, as the plain version's matmuls.
-__device__ __forceinline__ float upsampled(const float* __restrict__ c,
-                                           const Upsample& t, int y, int x) {
-  const int y0 = t.yi[y], y1 = t.yi[t.h + y];
-  const float wy0 = t.yw[y], wy1 = t.yw[t.h + y];
-  const int x0 = t.xi[x], x1 = t.xi[t.w + x];
-  const float wx0 = t.xw[x], wx1 = t.xw[t.w + x];
-  const float r0 = wy0 * c[y0 * t.wc + x0] + wy1 * c[y1 * t.wc + x0];
-  const float r1 = wy0 * c[y0 * t.wc + x1] + wy1 * c[y1 * t.wc + x1];
-  return (wx0 * r0 + wx1 * r1) * t.scale;
+// One row's or column's two taps, staged in shared memory (one LDS.128).
+struct Tap {
+  int i0, i1;
+  float w0, w1;
+};
+
+__device__ __forceinline__ Tap load_tap(const int* idx, const float* wts,
+                                        int n, int i) {
+  return Tap{idx[i], idx[n + i], wts[i], wts[n + i]};
+}
+
+// Flow plane `c` (hc x wc) upsampled at the pixel whose row and column taps
+// are ty, tx: the row pass first, then the column pass, as the plain
+// version's matmuls.
+__device__ __forceinline__ float upsampled(const float* __restrict__ c, int wc,
+                                           const Tap& ty, const Tap& tx,
+                                           float scale) {
+  const float r0 = ty.w0 * __ldg(c + ty.i0 * wc + tx.i0) + ty.w1 * __ldg(c + ty.i1 * wc + tx.i0);
+  const float r1 = ty.w0 * __ldg(c + ty.i0 * wc + tx.i1) + ty.w1 * __ldg(c + ty.i1 * wc + tx.i1);
+  return (tx.w0 * r0 + tx.w1 * r1) * scale;
 }
 
 // Bilinear sample of img (h x w, global memory, read-only for the launch)
@@ -74,69 +94,178 @@ __device__ __forceinline__ float warp_sample(const float* __restrict__ img,
   return r;
 }
 
-// Shared-memory tiles of one CTA.  sW: warped i2 over (TILE_H + 2R) x
-// (TILE_W + 2R) from (oy - R, ox - R); sA: i1 over (TILE_H + 2r) x
-// (TILE_W + 2r) from (oy - r, ox - r); both at clamped image coordinates.
-struct Tiles {
-  float* sW;
-  float* sA;
-  int R, r, oy, ox;
-  __device__ __forceinline__ int wpitch() const { return TILE_W + 2 * R; }
-  __device__ __forceinline__ int apitch() const { return TILE_W + 2 * r; }
+__host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
+
+// Shared-memory geometry of a TW x TH tile with window radius r and a
+// warped halo R.  Pitches: warp WW, i1 AW, diff DP (a multiple of 4 wide
+// enough for the rows pass's aligned float4 reads), row sums TW.
+struct Geom {
+  int TW, TH, r, R;
+  __host__ __device__ constexpr int WH() const { return TH + 2 * R; }
+  __host__ __device__ constexpr int WW() const { return TW + 2 * R; }
+  __host__ __device__ constexpr int AH() const { return TH + 2 * r; }
+  __host__ __device__ constexpr int AW() const { return TW + 2 * r; }
+  // float4 reads per rows-pass item: 4 + 2r values from an aligned start.
+  __host__ __device__ constexpr int NL() const { return (4 + 2 * r + 3) / 4; }
+  __host__ __device__ constexpr int DP() const { return TW - 4 + 4 * NL(); }
+  __host__ __device__ constexpr int warp_floats() const { return WH() * WW(); }
+  __host__ __device__ constexpr int a_floats() const { return AH() * AW(); }
+  __host__ __device__ constexpr int d_floats() const { return AH() * DP(); }
+  __host__ __device__ constexpr int h_floats() const { return AH() * TW; }
+  __host__ __device__ constexpr int tap_count() const { return WH() + WW(); }
 };
 
-__device__ inline void load_tiles(const Tiles& t, const float* __restrict__ i1,
-                                  const float* __restrict__ i2,
-                                  const float* __restrict__ uc,
-                                  const float* __restrict__ vc,
-                                  const Upsample& up, int h, int w) {
-  const int tid = threadIdx.y * TILE_W + threadIdx.x;
-  const int wp = t.wpitch(), wn = wp * (TILE_H + 2 * t.R);
-  for (int i = tid; i < wn; i += TILE_THREADS) {
-    const int gy = clampi(t.oy - t.R + i / wp, 0, h - 1);
-    const int gx = clampi(t.ox - t.R + i % wp, 0, w - 1);
-    t.sW[i] = warp_sample(i2, h, w, gy, gx, upsampled(uc, up, gy, gx),
-                          upsampled(vc, up, gy, gx));
+// A CTA's shared memory, in this order: the row and column taps, the
+// warped i2 (sW), i1 (sA), `planes` diff planes (sD, pitch DP) and as many
+// row-sum planes (sH, pitch TW), then whatever the kernel adds (rest).
+struct TileSmem {
+  Tap* rt;
+  Tap* ct;
+  float *sW, *sA, *sD, *sH, *rest;
+};
+
+__host__ __device__ constexpr int tile_smem_floats(const Geom g, int planes) {
+  return 4 * g.tap_count() + round4(g.warp_floats()) + round4(g.a_floats()) +
+         planes * (g.d_floats() + g.h_floats());
+}
+
+__device__ __forceinline__ TileSmem carve(float* smem, const Geom g, int planes) {
+  TileSmem t;
+  t.rt = reinterpret_cast<Tap*>(smem);
+  t.ct = t.rt + g.WH();
+  t.sW = smem + 4 * g.tap_count();
+  t.sA = t.sW + round4(g.warp_floats());
+  t.sD = t.sA + round4(g.a_floats());
+  t.sH = t.sD + planes * g.d_floats();
+  t.rest = t.sH + planes * g.h_floats();
+  return t;
+}
+
+// Stage the tile at (oy, ox): the row and column upsample taps of the warp
+// region (rt: WH rows, ct: WW columns, at clamped image coordinates), then
+// sW (warped i2, WH x WW) and sA (i1, AH x AW).  All NT threads of the CTA take part; ends
+// with __syncthreads().
+template <int NT>
+__device__ __forceinline__ void stage(const Geom g, const TileSmem& t,
+                                      const float* __restrict__ i1,
+                                      const float* __restrict__ i2,
+                                      const float* __restrict__ uc,
+                                      const float* __restrict__ vc,
+                                      const Upsample& up, int oy, int ox) {
+  const int tid = threadIdx.x, h = up.h, w = up.w;
+  const int WH = g.WH(), WW = g.WW();
+  for (int i = tid; i < WH + WW; i += NT) {
+    if (i < WH) {
+      t.rt[i] = load_tap(up.yi, up.yw, h, clampi(oy - g.R + i, 0, h - 1));
+    } else {
+      t.ct[i - WH] = load_tap(up.xi, up.xw, w, clampi(ox - g.R + i - WH, 0, w - 1));
+    }
   }
-  const int ap = t.apitch(), an = ap * (TILE_H + 2 * t.r);
-  for (int i = tid; i < an; i += TILE_THREADS) {
-    const int gy = clampi(t.oy - t.r + i / ap, 0, h - 1);
-    const int gx = clampi(t.ox - t.r + i % ap, 0, w - 1);
-    t.sA[i] = i1[gy * w + gx];
+  __syncthreads();
+  for (int i = tid; i < WH * WW; i += NT) {
+    const int row = i / WW, col = i - row * WW;
+    const int gy = clampi(oy - g.R + row, 0, h - 1);
+    const int gx = clampi(ox - g.R + col, 0, w - 1);
+    const Tap ty = t.rt[row], tx = t.ct[col];
+    t.sW[i] = warp_sample(i2, h, w, gy, gx, upsampled(uc, up.wc, ty, tx, up.scale),
+                        upsampled(vc, up.wc, ty, tx, up.scale));
+  }
+  const int AH = g.AH(), AW = g.AW();
+  for (int i = tid; i < AH * AW; i += NT) {
+    const int row = i / AW, col = i - row * AW;
+    const int gy = clampi(oy - g.r + row, 0, h - 1);
+    const int gx = clampi(ox - g.r + col, 0, w - 1);
+    t.sA[i] = __ldg(i1 + gy * w + gx);
+  }
+  __syncthreads();
+}
+
+// diff pass of candidate (dx, dy): items `first`, `first + stride`, ... of
+// the AH x AW plane into sD (pitch DP).
+__device__ __forceinline__ void diff_pass(const Geom g, const float* sA,
+                                          const float* sW, float* sD, int dx,
+                                          int dy, int oy, int ox, int h, int w,
+                                          int round_bf16, int first,
+                                          int stride) {
+  const int AW = g.AW(), WW = g.WW(), s = g.R - g.r;
+  for (int i = first; i < g.AH() * AW; i += stride) {
+    const int row = i / AW, col = i - row * AW;
+    const int gy = oy - g.r + row, gx = ox - g.r + col;
+    float d = 0.0f;
+    if (gy >= 0 && gy < h && gx >= 0 && gx < w) {
+      d = fabsf(sA[i] - sW[(row + s + dy) * WW + col + s + dx]);
+      if (round_bf16) d = __bfloat162float(__float2bfloat16_rn(d));
+    }
+    sD[row * g.DP() + col] = d;
   }
 }
 
-// Cost of candidate (dx, dy) at image pixel (y, x), local tile position
-// (ly, lx): box mean over the win x win taps of |i1 - shifted warp| (taps
-// outside the image count 0, the sum is still divided by win^2), each
-// |diff| rounded to bf16 when round_bf16, plus the 1e-3/px prior; an
-// out-of-image centre replaces the cost with 1e10.
-__device__ __forceinline__ float cand_cost(const Tiles& t, int y, int x,
-                                           int ly, int lx, int dx, int dy,
-                                           int h, int w, int round_bf16) {
-  if (x + dx < 0 || x + dx > w - 1 || y + dy < 0 || y + dy > h - 1) return kBig;
-  const int wp = t.wpitch(), ap = t.apitch();
-  float vs = 0.0f;
-  for (int ty = -t.r; ty <= t.r; ++ty) {
-    const int yy = y + ty;
-    float hs = 0.0f;
-    if (yy >= 0 && yy < h) {
-      const float* arow = t.sA + (ly + ty + t.r) * ap + t.r + lx;
-      const float* wrow = t.sW + (ly + ty + dy + t.R) * wp + t.R + lx + dx;
-      for (int tx = -t.r; tx <= t.r; ++tx) {
-        const int xx = x + tx;
-        float d = 0.0f;
-        if (xx >= 0 && xx < w) {
-          d = fabsf(arow[tx] - wrow[tx]);
-          if (round_bf16) d = __bfloat162float(__float2bfloat16_rn(d));
-        }
-        hs = hs + d;
+// rows pass: for each (row, group of four columns) item, the four row sums
+// 0 + d(x - r) + ... + d(x + r) into sH (pitch TW).
+__device__ __forceinline__ void rows_pass(const Geom g, const float* sD,
+                                          float* sH, int first, int stride) {
+  const int groups = g.TW / 4, n = 2 * g.r + 1;
+  for (int i = first; i < g.AH() * groups; i += stride) {
+    const int row = i / groups, c4 = (i - row * groups) * 4;
+    const float4* src = reinterpret_cast<const float4*>(sD + row * g.DP() + c4);
+    float d[12];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      if (j < g.NL()) {
+        const float4 q = src[j];
+        d[4 * j] = q.x;
+        d[4 * j + 1] = q.y;
+        d[4 * j + 2] = q.z;
+        d[4 * j + 3] = q.w;
       }
     }
-    vs = vs + hs;
+    float o[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      float s = d[k];
+#pragma unroll
+      for (int t = 1; t < 7; ++t) {
+        if (t < n) s = s + d[k + t];
+      }
+      o[k] = s;
+    }
+    *reinterpret_cast<float4*>(sH + row * g.TW + c4) = make_float4(o[0], o[1], o[2], o[3]);
   }
-  const float win = (float)(2 * t.r + 1);
-  return vs / (win * win) + kTieEps * (float)(abs(dx) + abs(dy));
+}
+
+// cols pass for output row ly (tile-local), columns c4 .. c4 + 3 at image
+// (y, x): the four costs of candidate (dx, dy).
+__device__ __forceinline__ float4 cols_cost(const Geom g, const float* sH,
+                                            int ly, int c4, int y, int x,
+                                            int dx, int dy, int h, int w,
+                                            float inv_area, float tie) {
+  const float* col = sH + ly * g.TW + c4;
+  float4 v = *reinterpret_cast<const float4*>(col);
+#pragma unroll
+  for (int t = 1; t < 7; ++t) {
+    if (t < 2 * g.r + 1) {
+      const float4 q = *reinterpret_cast<const float4*>(col + t * g.TW);
+      v.x = v.x + q.x;
+      v.y = v.y + q.y;
+      v.z = v.z + q.z;
+      v.w = v.w + q.w;
+    }
+  }
+  const bool row_out = y + dy < 0 || y + dy > h - 1;
+  auto cost = [&](float vs, int xx) {
+    return (row_out || xx + dx < 0 || xx + dx > w - 1) ? kBig : vs * inv_area + tie;
+  };
+  return make_float4(cost(v.x, x), cost(v.y, x + 1), cost(v.z, x + 2), cost(v.w, x + 3));
+}
+
+// Component j of q (j a compile-time constant after unrolling, so q stays
+// in registers).
+__device__ __forceinline__ float lane4(const float4& q, int j) {
+  return j == 0 ? q.x : (j == 1 ? q.y : (j == 2 ? q.z : q.w));
+}
+
+__device__ __forceinline__ float tie_of(int dx, int dy) {
+  return kTieEps * (float)(abs(dx) + abs(dy));
 }
 
 // Parabola vertex offset through (-1, cm), (0, cc), (1, cp), clipped to
@@ -149,9 +278,12 @@ __device__ __forceinline__ float parabola(float cm, float cc, float cp) {
   return fminf(fmaxf(off, -0.5f), 0.5f);
 }
 
-inline size_t tiles_smem_bytes(int R, int r) {
-  return sizeof(float) * ((size_t)(TILE_H + 2 * R) * (TILE_W + 2 * R) +
-                          (size_t)(TILE_H + 2 * r) * (TILE_W + 2 * r));
+// Opt a kernel into `bytes` of dynamic shared memory (needed above 48 KB).
+template <typename K>
+inline cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
 }
 
 }  // namespace ofps

@@ -24,12 +24,12 @@ using namespace ofps;
 
 namespace {
 
-__global__ void __launch_bounds__(TILE_THREADS)
+__global__ void __launch_bounds__(kFlatW * kFlatH)
 warp_kernel(const float* __restrict__ img, const float* __restrict__ u,
             const float* __restrict__ v, float* __restrict__ out, int h,
             int w) {
-  const int x = blockIdx.x * TILE_W + threadIdx.x;
-  const int y = blockIdx.y * TILE_H + threadIdx.y;
+  const int x = blockIdx.x * kFlatW + threadIdx.x;
+  const int y = blockIdx.y * kFlatH + threadIdx.y;
   if (x >= w || y >= h) return;
   const size_t off = blockIdx.z * (size_t)h * w;
   const size_t i = off + (size_t)y * w + x;
@@ -41,8 +41,8 @@ warp_kernel(const float* __restrict__ img, const float* __restrict__ u,
 extern "C" int ofps_warp_bilinear(const float* img, const float* u,
                                   const float* v, float* out, int B, int h,
                                   int w, void* stream) {
-  const dim3 grid((w + TILE_W - 1) / TILE_W, (h + TILE_H - 1) / TILE_H, B);
-  warp_kernel<<<grid, dim3(TILE_W, TILE_H), 0, (cudaStream_t)stream>>>(
+  const dim3 grid((w + kFlatW - 1) / kFlatW, (h + kFlatH - 1) / kFlatH, B);
+  warp_kernel<<<grid, dim3(kFlatW, kFlatH), 0, (cudaStream_t)stream>>>(
       img, u, v, out, h, w);
   return (int)cudaGetLastError();
 }

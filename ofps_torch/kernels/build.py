@@ -1,8 +1,8 @@
 """Build and load the hand-written CUDA kernels.
 
 The sources in ``ofps_torch/csrc/`` are compiled at first use with ``nvcc``
-for ``sm_90a`` into one shared library with a plain C interface, loaded with
-ctypes.  The build directory is keyed by a hash of the sources and flags, so
+for ``sm_90a``, one ``nvcc`` per source, all started together, and linked
+into one shared library with a plain C interface, loaded with ctypes.  The build directory is keyed by a hash of the sources and flags, so
 an edited kernel is rebuilt and an unchanged one is loaded as it is.
 
 No ``--use_fast_math``: it flushes denormals, which breaks the float32
@@ -31,8 +31,11 @@ SOURCES = ("flow_refine.cu", "flow_refine_small.cu", "warp.cu")
 HEADERS = ("level_refine.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# Window sizes the refine kernels are compiled for (csrc/flow_refine*.cu).
+KERNEL_WINDOWS = (3, 5, 7)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -92,10 +95,24 @@ def build(verbose: bool = False) -> Path:
     """Compile the kernels (if this source hash has no library yet) and
     return the library's path.  Raises on any compiler error."""
     lib = BUILD_ROOT / source_digest() / "libofps_kernels.so"
-    if not lib.exists():
-        log = compile_shared(lib, [_nvcc(), *NVCC_FLAGS, *(str(CSRC / s) for s in SOURCES)])
-        if verbose:
-            print(log)
+    if lib.exists():
+        return lib
+    nvcc = _nvcc()
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=lib.parent) as tmp:
+        objs = [Path(tmp) / (Path(s).stem + ".o") for s in SOURCES]
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o", str(o)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for s, o in zip(SOURCES, objs)
+        ]
+        logs = [p.communicate()[0] for p in procs]
+        for s, p, out in zip(SOURCES, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"{nvcc} failed on {s} ({p.returncode}):\n{out}")
+        logs.append(compile_shared(lib, [nvcc, "-shared", *map(str, objs)]))
+    if verbose:
+        print("\n".join(logs))
     return lib
 
 

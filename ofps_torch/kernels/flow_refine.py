@@ -97,6 +97,8 @@ def flow_refine(i1, i2, u, v, win: int, cost_dtype=torch.bfloat16,
         return flow_refine_plain(i1, i2, u, v, win, cost_dtype, grid_plan)
     if cost_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"flow_refine: unsupported cost_dtype {cost_dtype}")
+    if win not in build.KERNEL_WINDOWS:
+        raise ValueError(f"flow_refine: the kernel takes win in {build.KERNEL_WINDOWS}, not {win}")
     build.require_cuda_f32("flow_refine", i1, i2, u, v)
     bsz, h, w = i1.shape
     hc, wc = u.shape[-2:]

@@ -45,6 +45,8 @@ def flow_refine_small(i1, i2, u, v, search: int, win: int,
         return flow_refine_small_plain(i1, i2, u, v, search, win, cost_dtype)
     if cost_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"flow_refine_small: unsupported cost_dtype {cost_dtype}")
+    if win not in build.KERNEL_WINDOWS:
+        raise ValueError(f"flow_refine_small: the kernel takes win in {build.KERNEL_WINDOWS}, not {win}")
     build.require_cuda_f32("flow_refine_small", i1, i2, u, v)
     bsz, h, w = i1.shape
     hc, wc = u.shape[-2:]

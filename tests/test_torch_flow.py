@@ -76,6 +76,53 @@ def test_level_refine_matches(scene, search, axis_sep):
     _assert_flow_close(du.numpy(), dv.numpy(), ref[..., 0], ref[..., 1])
 
 
+def _tie_scene(h, w, s):
+    """Binary blocks (0 or 8: every |diff| and box sum is exact, so equal
+    costs tie exactly), a flat left third where only the prior separates
+    the candidates, and i1 = i2 moved right by s px: the textured part's
+    best candidate lies at the edge of the search, dx = -s."""
+    rng = np.random.default_rng(7)
+    blocks = rng.integers(0, 2, (1, h // 2 + 2, w // 2 + s + 2)).astype(np.float32) * 8
+    i2 = np.repeat(np.repeat(blocks, 2, axis=1), 2, axis=2)[:, :h, s : s + w].copy()
+    i1 = np.repeat(np.repeat(blocks, 2, axis=1), 2, axis=2)[:, :h, :w].copy()
+    i1[:, :, : w // 3] = 8.0
+    i2[:, :, : w // 3] = 8.0
+    return i1, i2
+
+
+@pytest.mark.parametrize(
+    "h,w,search,axis_sep,ties",
+    [(33, 60, 6, False, False), (67, 120, 6, False, False), (33, 60, 6, False, True),
+     (67, 121, 1, True, False), (67, 121, 1, True, True)],
+)
+def test_level_refine_matches_at_kernel_shapes(h, w, search, axis_sep, ties):
+    """The kernels' yardstick where a parallel argmin is most at risk: the
+    coarse levels' 169-candidate sweep, a tie-heavy scene (exact ties that
+    the prior and the dy-outer order must decide, best candidate at +-s)
+    and the axis-separable refine at a size that is no multiple of a tile."""
+    if ties:
+        i1, warped = _tie_scene(h, w, search)
+    else:
+        i1, i2, flow = _scene(8, h=h, w=w, batch=2)
+        rng = np.random.default_rng(9)
+        init = flow + rng.normal(0, 0.6, flow.shape).astype(np.float32)
+        warped = np.asarray(j_warp(jnp.asarray(i2), jnp.asarray(init)))
+    ref = np.asarray(
+        jax.jit(
+            lambda a, b: jfp._level_refine(a, b, search, 5, jnp.bfloat16, axis_sep=axis_sep)
+        )(jnp.asarray(i1), jnp.asarray(warped))
+    )
+    du, dv = tfp._level_refine(_t(i1), _t(warped), search, 5, torch.bfloat16, axis_sep)
+    if ties:
+        # Every integer choice equal; the parabola's rounding may differ.
+        np.testing.assert_allclose(du.numpy(), ref[..., 0], rtol=0, atol=1e-6)
+        np.testing.assert_allclose(dv.numpy(), ref[..., 1], rtol=0, atol=1e-6)
+        if not axis_sep:
+            assert (du.numpy() == -search).mean() > 0.3  # the edge of the search wins
+    else:
+        _assert_flow_close(du.numpy(), dv.numpy(), ref[..., 0], ref[..., 1])
+
+
 @pytest.mark.parametrize("fuse_min_pixels", [3000, 30000])
 def test_dense_flow_warm_matches(scene, fuse_min_pixels):
     """3 levels, warm init + coarse guard.  fuse_min_pixels=3000 sends the
@@ -259,3 +306,44 @@ def test_refine_2d_at_big_levels_on_cuda():
         ref = kfs.flow_refine_small_plain(a, b, uc, vc, s, 5)
         d = torch.maximum((got[0] - ref[0]).abs(), (got[1] - ref[1]).abs())
         assert (d > 1e-3).float().mean().item() < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "kind,h,w,batch,search",
+    [("2d", 33, 60, 4, 6), ("2d", 67, 120, 1, 6), ("2d-ties", 33, 60, 1, 6),
+     ("2d", 9, 33, 2, 6), ("2d", 33, 65, 2, 1), ("sep", 67, 121, 2, 1),
+     ("sep", 65, 129, 2, 1), ("sep-grid", 100, 130, 2, 1)],
+)
+def test_redesigned_kernels_match_plain_on_cuda(kind, h, w, batch, search):
+    """On the card: the separable-cost-plane kernels against their plain
+    versions at the coarse sweep's shapes (s=6 at 33x60 and 67x120), on the
+    tie-heavy scene, and one row or column past their tiles (8x8 and 32x8
+    for the 2-D sweep, 64x32 for the axis-separable refine); under 0.1% of
+    pixels off by more than 1e-3 px, grid sums within 1e-5 normalized."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    if kind == "2d-ties":
+        i1, i2 = _tie_scene(h, w, search)
+        uc = vc = np.zeros_like(i1)
+    else:
+        i1, i2, flow = _scene(10, h=h, w=w, batch=batch)
+        uc = flow[:, ::2, ::2, 0] * 0.5
+        vc = flow[:, ::2, ::2, 1] * 0.5
+    a, b, uc, vc = (_t(x).to(dev) for x in (i1, i2, uc, vc))
+    if kind == "sep-grid":
+        plan = kfr.build_grid_plan(h, w, 9, 11, border_px=5, device=dev)
+        got = kfr.flow_refine(a, b, uc, vc, 5, grid_plan=plan)
+        ref = kfr.flow_refine_plain(a, b, uc, vc, 5, grid_plan=plan)
+        for g, r, n in zip(got, ref, (w, h)):
+            assert ((g - r).abs() / (plan.counts * n)).max().item() <= 1e-5
+        return
+    if kind == "sep":
+        got, ref = kfr.flow_refine(a, b, uc, vc, 5), kfr.flow_refine_plain(a, b, uc, vc, 5)
+    else:
+        got = kfs.flow_refine_small(a, b, uc, vc, search, 5)
+        ref = kfs.flow_refine_small_plain(a, b, uc, vc, search, 5)
+    d = torch.maximum((got[0] - ref[0]).abs(), (got[1] - ref[1]).abs())
+    assert (d > 1e-3).float().mean().item() < 1e-3
+
