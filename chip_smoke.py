@@ -10,14 +10,18 @@ Phases, each printing its own line; any failure exits non-zero:
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes its paths give it: the 1080p serving step (B=4), the cv block
    matcher (B=1: flow mode at 1080x1920 and 270x480, the guarded 67x120
-   s=6 level), the warp at the five LK level shapes (B=1 and B=4), the 2-D
-   sweep at the big-level shapes of ``FlowParams(axis_sep=False)`` and
-   ``FlowParams(search=2)``;
+   s=6 level), the robust LK's guard (67x120, win 7), the warp at the five
+   LK level shapes (B=1 and B=4), the 2-D sweep at the big-level shapes of
+   ``FlowParams(axis_sep=False)`` and ``FlowParams(search=2)``.  The 3x3
+   median has no launch of its own: it runs in the staging of the next
+   level's refine (``median_in``), so its cases are the serving step's four
+   median-taking refines, held against the plain median then the plain
+   refine, and timed beside the same refines without it;
 4. slice: ``StreamPipeline`` (almeida + block_motion, serving config) at
    1080p, B=4, 8 frames of a textured scene moving 3 px per frame with a
-   patch moving 12 px per frame; checks that every kernel ran, the shift is
-   recovered, poses are finite, the detector reports the patch, and the
-   plain path agrees;
+   patch moving 12 px per frame; checks that every kernel ran as often per
+   step as the pyramid needs, the shift is recovered, poses are finite, the
+   detector reports the patch, and the plain path agrees;
 5. refine_2d: ``dense_flow`` at 1080p with ``axis_sep=False`` and with
    ``search=2``, whose big levels run the 2-D sweep; checks the launches
    and the plain path;
@@ -39,6 +43,7 @@ as the last line, ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import inspect
 import json
 import math
 import subprocess
@@ -84,6 +89,11 @@ UPSAMPLE_OPS = 10
 def box_ops(win: int) -> int:
     return 2 * (win - 1)
 
+
+# Float32 operations per pixel of a 3x3 median of both flow planes: 19
+# exchanges (a min and a max) each.
+MEDIAN_OPS = 2 * 19 * 2
+
 REPLACES = {
     "flow_refine": ("csrc/flow_refine.cu", "ofps_tpu/pallas/flow_refine.py:60"),
     "flow_refine_2d": (
@@ -94,7 +104,7 @@ REPLACES = {
     "guard_select": (
         "csrc/flow_refine_small.cu", "ofps_tpu/pallas/flow_refine_small.py:231"),
     "median3x3_uv": (
-        "csrc/flow_refine_small.cu", "ofps_tpu/pallas/flow_refine_small.py:196"),
+        "csrc/level_refine.cuh", "ofps_tpu/pallas/flow_refine_small.py:196"),
     "warp_bilinear": ("csrc/warp.cu", "ofps_tpu/pallas/warp.py:46"),
 }
 
@@ -254,15 +264,48 @@ def kernel_cases(torch, device, batch: int):
             sweep_cost(*shape(lvl, b), *u0.shape[-2:], (2 * s + 1) ** 2, win))
         return case, kfs.flow_refine_small_plain(*args)
 
-    def guard_case(lvl, b, warm, zero):
-        args = (*frame_pair(lvl, b), *warm, *zero, win)
+    def guard_case(lvl, b, warm, zero, gwin):
+        args = (*frame_pair(lvl, b), *warm, *zero, gwin)
         px = math.prod(shape(lvl, b))
         return Case(
             lambda a=args: kfs.guard_select(*a),
             lambda a=args: kfs.guard_select_plain(*a), ("flow", None), shape(lvl, b),
             # 6 planes in, 2 out; per pixel and flow: warp, |diff|, box sum,
             # divide; then the compare and two selects.
-            (4 * 8 * px, px * (2 * (WARP_OPS + 2 + box_ops(win) + 1) + 3)))
+            (4 * 8 * px, px * (2 * (WARP_OPS + 2 + box_ops(gwin) + 1) + 3)))
+
+    # A tree whose refine wrappers lack ``median_in`` (the parent of the
+    # fused median, run by scripts/kernel_ab.py) launches the standalone
+    # median and then the refine: the same function at the same shape.
+    fused = "median_in" in inspect.signature(kfr.flow_refine).parameters
+
+    def median_consumer(lvl):
+        """The serving step's refine of level ``lvl`` from level ``lvl +
+        1``'s flow, with the 3x3 median of that flow (a Case for
+        "median3x3_uv") and without it (a Case for "median_consumers")."""
+        uc, vc = flow_at(lvl + 1)
+        i1, i2 = frame_pair(lvl)
+        if lvl == 4:  # 67x120: the 2-D sweep, s=1
+            kernel, plain = kfs.flow_refine_small, kfs.flow_refine_small_plain
+            tail, n_cand = (1, win, bf16), 9
+        else:
+            kernel, plain = kfr.flow_refine, kfr.flow_refine_plain
+            tail, n_cand = (win, bf16), 5
+        nbytes, ops = sweep_cost(*shape(lvl), *uc.shape[-2:], n_cand, win)
+        if fused:
+            def with_median():
+                return kernel(i1, i2, uc, vc, *tail, median_in=True)
+        else:
+            def with_median():
+                return kernel(i1, i2, *kfs.median3x3_uv(uc, vc), *tail)
+        return (
+            Case(with_median,
+                 lambda: plain(i1, i2, *kfs.median3x3_uv_plain(uc, vc), *tail),
+                 ("flow", None), shape(lvl),
+                 (nbytes, ops + MEDIAN_OPS * batch * uc.shape[-2] * uc.shape[-1])),
+            Case(lambda: kernel(i1, i2, uc, vc, *tail), lambda: plain(i1, i2, uc, vc, *tail),
+                 ("flow", None), shape(lvl), (nbytes, ops)),
+        )
 
     win, bf16 = 5, torch.bfloat16
     gh_gw = grid_size_for(W, H)[::-1]
@@ -270,6 +313,7 @@ def kernel_cases(torch, device, batch: int):
         H, W, *gh_gw, border_px=border_margin_px(FlowParams(), H, W), device=device,
     )
     cases = {k: [] for k in REPLACES}
+    cases["median_consumers"] = []
     # The serving step's axis-separable levels (B=batch): 1080x1920 with
     # the grid, 540x960, 270x480 and 135x240; the cv block matcher's (B=1,
     # flow mode): 1080x1920 and 270x480.
@@ -287,32 +331,34 @@ def kernel_cases(torch, device, batch: int):
     # and 540x960 s=2 from 270x480 (search=2).
     for lvl, s in ((0, 1), (1, 2)):
         cases["flow_refine_2d"].append(sweep_cases(lvl, batch, *flow_at(lvl + 1), s)[0])
-    # 67x120: s=1 from the upsampled 33x60 flow, then the median.
+    # 67x120: s=1 from the upsampled 33x60 flow.
     cases["flow_refine_small"].append(sweep_cases(4, batch, *flow_at(5), 1)[0])
     # The guarded coarsest level: s=6 from the warm init and from zero,
     # then the guard; the serving step's at 33x60 (B=batch), the cv block
-    # matcher's at 67x120 (B=1).
-    for lvl, b in ((5, batch), (4, 1)):
+    # matcher's at 67x120 (B=1) and, on the same flows, the robust LK's
+    # (67x120, B=1, its window of 7).
+    for lvl, b, gwins in ((5, batch, (win,)), (4, 1, (win, 7))):
         uw, vw = flow_at(lvl, b)
         zero = torch.zeros_like(uw)
         warm_case, warm = sweep_cases(lvl, b, uw, vw, 6)
         zero_case, zeroed = sweep_cases(lvl, b, zero, zero, 6)
         cases["flow_refine_small"] += [warm_case, zero_case]
-        case = guard_case(lvl, b, warm, zeroed)
-        # The pixels where the guard takes the zero-init side: a guard that
-        # always kept the warm side disagrees with the plain version there.
-        picked = case.pcall()
-        case.note = "zero side taken at {:.2e} of pixels".format(
-            ((picked[0] == zeroed[0]) & (zeroed[0] != warm[0])).float().mean().item())
-        cases["guard_select"].append(case)
-    for lvl in (5, 4, 3, 2):
-        args = flow_at(lvl)
-        px = math.prod(shape(lvl))
-        cases["median3x3_uv"].append(Case(
-            lambda a=args: kfs.median3x3_uv(*a),
-            lambda a=args: kfs.median3x3_uv_plain(*a), ("flow", None), shape(lvl),
-            # 2 planes in, 2 out; 19 exchanges (min + max) per plane.
-            (4 * 4 * px, px * 2 * 19 * 2)))
+        for gwin in gwins:
+            case = guard_case(lvl, b, warm, zeroed, gwin)
+            # The pixels where the guard takes the zero-init side: a guard
+            # that always kept the warm side disagrees with the plain
+            # version there.
+            picked = case.pcall()
+            case.note = "win {}: zero side taken at {:.2e} of pixels".format(
+                gwin,
+                ((picked[0] == zeroed[0]) & (zeroed[0] != warm[0])).float().mean().item())
+            cases["guard_select"].append(case)
+    # The median after levels 5, 4, 3 and 2, in the refine of the next
+    # finer level: 67x120 (s=1), 135x240, 270x480, 540x960.
+    for lvl in (4, 3, 2, 1):
+        with_median, without = median_consumer(lvl)
+        cases["median3x3_uv"].append(with_median)
+        cases["median_consumers"].append(without)
     # The LK warp at its five level shapes, B=1 and B=batch.  The library
     # yardstick is grid_sample (border padding, align_corners) on the same
     # sample coordinates, normalized outside the timed call.
@@ -390,14 +436,38 @@ def make_pipeline(device, plain: bool):
     )
 
 
-def count_launches(torch, wrappers, fn):
+def launch_counters(kfr, kfs, kwarp):
+    """Per kernel: the (wrapper, attribute) launch counts that it sums.
+    The 3x3 median is counted where a refine launch takes it."""
+    return {
+        "flow_refine": [(kfr.flow_refine, "launches")],
+        "flow_refine_2d": [(kfs.flow_refine_small, "launches")],
+        "flow_refine_small": [(kfs.flow_refine_small, "launches")],
+        "guard_select": [(kfs.guard_select, "launches")],
+        "median3x3_uv": [(kfr.flow_refine, "median_in_launches"),
+                         (kfs.flow_refine_small, "median_in_launches")],
+        "warp_bilinear": [(kwarp.warp_bilinear, "launches")],
+    }
+
+
+def count_launches(torch, counters, fn):
     """Run ``fn`` with every launch count set to 0 just before it; returns
     (its result, {name: launches} read just after)."""
-    for w in set(wrappers.values()):
-        w.launches = 0
+    for pairs in counters.values():
+        for wrapper, attr in pairs:
+            setattr(wrapper, attr, 0)
     out = fn()
     torch.cuda.synchronize()
-    return out, {k: w.launches for k, w in wrappers.items()}
+    return out, {k: sum(getattr(w, a) for w, a in pairs) for k, pairs in counters.items()}
+
+
+def check_per_step(path, launches, per_step):
+    """Fail unless each kernel ran ``per_step`` times per guarded coarsest
+    level (one per step)."""
+    steps = launches["guard_select"]
+    want = {k: n * steps for k, n in per_step.items()}
+    if steps <= 0 or any(launches[k] != n for k, n in want.items()):
+        fail(f"{path}: launches {launches}, expected {want} over {steps} steps")
 
 
 def run_cv(torch, device, frames, use_rlof: bool, plain: bool):
@@ -444,32 +514,31 @@ def main() -> None:
     build.library()
     phase("build", f"nvcc sm_90a build+load {time.perf_counter() - t0:.2f} s "
           f"({build.source_digest()})")
-    wrappers = {
-        "flow_refine": kfr.flow_refine,
-        "flow_refine_2d": kfs.flow_refine_small,
-        "flow_refine_small": kfs.flow_refine_small,
-        "guard_select": kfs.guard_select,
-        "median3x3_uv": kfs.median3x3_uv,
-        "warp_bilinear": kwarp.warp_bilinear,
-    }
+    counters = launch_counters(kfr, kfs, kwarp)
+    # The median has no launch of its own any more: no wrapper or entry
+    # point that a path could call for it.
+    if hasattr(kfs, "median3x3_uv") or hasattr(build.library(), "ofps_median3x3"):
+        fail("a standalone median launch exists")
 
     # 3. kernels vs plain
     batch = 4
     cases = kernel_cases(torch, device, batch)
     results = {}
     for name, items in cases.items():
-        worst, share, ok = 0.0, 0.0, True
+        worst, share, ok, errs = 0.0, 0.0, True, []
         for c in items:
             got, ref = c.kcall(), c.pcall()
             torch.cuda.synchronize()
             e, s, good = compare(torch, got, ref, c.kind)
             worst, share, ok = max(worst, e), max(share, s), ok and good
+            errs.append(e)
         results[name] = {"max_abs_err": worst, "mismatch_share": share}
         notes = [c.note for c in items if c.note]
         phase("kernels", f"{name}: {len(items)} case(s) "
               f"{[c.shape for c in items]} max_abs_err={worst:.3e} "
               f"mismatch_share={share:.2e} {'ok' if ok else 'FAILED'}"
-              + (f" ({'; '.join(notes)})" if notes else ""))
+              + (f" ({'; '.join(notes)})" if notes else "")
+              + (f" per case {[f'{e:.3e}' for e in errs]}" if len(items) > 1 else ""))
         if not ok:
             fail(f"{name} disagrees with its plain version")
     for c in cases["warp_bilinear"]:
@@ -482,13 +551,19 @@ def main() -> None:
     state = pipe.init_state(batch, H, W)
     gen = torch.Generator(device=device).manual_seed(SEED)
     (state, outs), counts = count_launches(
-        torch, wrappers, lambda: pipe.scan_frames(state, frames, gen))
+        torch, counters, lambda: pipe.scan_frames(state, frames, gen))
     slice_kernels = ("flow_refine", "flow_refine_small", "guard_select", "median3x3_uv")
     launches = {k: counts[k] for k in slice_kernels}
     launches_by_path = {"serving_slice": launches}
-    phase("slice", f"1080p B={batch} 8 frames: launches {launches}")
+    phase("slice", f"1080p B={batch} 8 frames: launches {launches} (median3x3_uv: "
+          f"refine launches that took the fused median)")
     if min(launches.values()) <= 0:
         fail(f"a kernel of the path was never launched: {launches}")
+    # Per step: 6 levels, four axis-separable, 67x120 s=1 and the two 33x60
+    # s=6 sweeps, one guard; the medians of levels 5..2 in the refines of
+    # levels 4..1.
+    check_per_step("serving_slice", launches, {
+        "flow_refine": 4, "flow_refine_small": 3, "median3x3_uv": 4})
     last = outs[-1]
     u_px = last.grid[:, 8:-8, 8:-8, 0] * W
     med = u_px.median().item()
@@ -533,7 +608,7 @@ def main() -> None:
     big2d = 0
     for params in (FlowParams(axis_sep=False), FlowParams(search=2)):
         flow, counts = count_launches(
-            torch, wrappers, lambda p=params: dense_flow(f0, f1, p))
+            torch, counters, lambda p=params: dense_flow(f0, f1, p))
         levels = effective_levels(params, H, W)
         sizes = [(H >> lvl, W >> lvl) for lvl in range(levels)]
         non_sep = [
@@ -569,8 +644,13 @@ def main() -> None:
     for path, need in cv_kernels.items():
         use_rlof = path == "cv_rlof"
         outs, counts = count_launches(
-            torch, wrappers, lambda r=use_rlof: run_cv(torch, device, cv_frames, r, False))
+            torch, counters, lambda r=use_rlof: run_cv(torch, device, cv_frames, r, False))
         launches_by_path[path] = {k: counts[k] for k in need}
+        if not use_rlof:
+            # 5 levels: four axis-separable, the two 67x120 s=6 sweeps, one
+            # guard; the medians of levels 4..2 in the refines of 3..1.
+            check_per_step(path, launches_by_path[path], {
+                "flow_refine": 4, "flow_refine_small": 2, "median3x3_uv": 3})
         meds, n_valid = [], []
         for _, grid, valid in outs:
             meds.append(grid[..., 0][valid].median().item() * W)
@@ -683,6 +763,15 @@ def main() -> None:
               f"{rounded(pms)} bound {rounded(bms)} {[c.bound_by for c in items]} "
               f"library {rounded(t['library_ms'])} device "
               f"{rounded(t['library_device_ms'])}) | {smi}")
+    # The fused median's device time per serving step: the four refines
+    # with it minus the same four without it.
+    without = sum(timings["median_consumers"]["device_ms"])
+    results["median3x3_uv"]["fused_device_ms"] = results["median3x3_uv"]["device_ms"] - without
+    phase("timing", f"median3x3_uv fused into the next level's refine: "
+          f"{results['median3x3_uv']['device_ms']:.4f} device ms for the four "
+          f"refines with it, {without:.4f} without, "
+          f"{results['median3x3_uv']['fused_device_ms']:.4f} ms per serving step "
+          f"(B={batch}) | {smi}")
     warp = timings["warp_bilinear"]
     loses = [tuple(c.shape) for c, k, lib in zip(
         cases["warp_bilinear"], warp["device_ms"], warp["library_device_ms"]) if k > lib]
@@ -705,6 +794,8 @@ def main() -> None:
                 "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "library_device_ms", "cases", "case_ms",
                 "case_device_ms")},
+            **({"fused_device_ms": results[name]["fused_device_ms"]}
+               if "fused_device_ms" in results[name] else {}),
         }
         for name in REPLACES
     ], "step_ms": {f"{p}_B{b}": v for (p, b), v in step_ms.items()},

@@ -24,6 +24,12 @@
 // atomics contend.  The TPU kernel's
 // block-mean DMA offset with a +-7 px residual clamp is not carried over:
 // every pixel samples at its own flow.
+//
+// kMedianIn (the levels that follow a level >= 2): the coarser level's 3x3
+// median runs as the staging's prologue (level_refine.cuh), a filtered
+// region of about 21 x 37 coarse pixels per plane (6 KB of shared memory
+// for both; the raw region reuses the diff and row-sum planes), so three
+// CTAs still share an SM.
 
 #include "level_refine.cuh"
 
@@ -69,7 +75,7 @@ __device__ __forceinline__ int cell_runs(const int* __restrict__ cells, int o,
   return runs;
 }
 
-template <int r>
+template <int r, bool kMedianIn>
 __global__ void __launch_bounds__(kThreads, 3)
 refine_sep_kernel(const float* __restrict__ i1, const float* __restrict__ i2,
                   const float* __restrict__ uc, const float* __restrict__ vc,
@@ -78,8 +84,9 @@ refine_sep_kernel(const float* __restrict__ i1, const float* __restrict__ i2,
                   const int* __restrict__ cell_x, float* __restrict__ gsum_u,
                   float* __restrict__ gsum_v, int gh, int gw, int round_bf16) {
   constexpr Geom g = sep_geom(r);
+  const MedianCap m = kMedianIn ? median_cap(g, up) : MedianCap{0, 0};
   extern __shared__ float4 smem4[];
-  const TileSmem t = carve(reinterpret_cast<float*>(smem4), g, 1);
+  const TileSmem t = carve(reinterpret_cast<float*>(smem4), g, 1, m);
 
   const int h = up.h, w = up.w, b = blockIdx.z, tid = threadIdx.x;
   const size_t plane = (size_t)h * w, cplane = (size_t)up.hc * up.wc;
@@ -88,7 +95,7 @@ refine_sep_kernel(const float* __restrict__ i1, const float* __restrict__ i2,
   uc += b * cplane;
   vc += b * cplane;
   const int oy = blockIdx.y * kTH, ox = blockIdx.x * kTW;
-  stage<kThreads>(g, t, i1, i2, uc, vc, up, oy, ox);
+  stage<kThreads, kMedianIn>(g, t, i1, i2, uc, vc, up, oy, ox, m);
 
   // Candidates in the order cym, cxm, c00, cxp, cyp; this thread's costs
   // at row ly, columns c4 .. c4 + 3.
@@ -109,13 +116,14 @@ refine_sep_kernel(const float* __restrict__ i1, const float* __restrict__ i2,
 
   float uo[4], vo[4];
   const Tap ty = t.rt[ly + g.R];
+  const Coarse<kMedianIn> cf = coarse_flow<kMedianIn>(g, t, uc, vc, up, m);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const Tap tx = t.ct[c4 + j + g.R];
     const float c00 = lane4(cost[2], j);
-    uo[j] = upsampled(uc, up.wc, ty, tx, up.scale) +
+    uo[j] = cf.at(cf.u, ty, tx, up.scale) +
             axis_refine(lane4(cost[1], j), c00, lane4(cost[3], j));
-    vo[j] = upsampled(vc, up.wc, ty, tx, up.scale) +
+    vo[j] = cf.at(cf.v, ty, tx, up.scale) +
             axis_refine(lane4(cost[0], j), c00, lane4(cost[4], j));
   }
 
@@ -185,20 +193,34 @@ refine_sep_kernel(const float* __restrict__ i1, const float* __restrict__ i2,
   }
 }
 
-template <int r>
+template <int r, bool kMedianIn>
 int launch_sep(const float* i1, const float* i2, const float* uc,
                const float* vc, const Upsample& up, float* u_out,
                float* v_out, const int* cell_y, const int* cell_x,
                float* gsum_u, float* gsum_v, int gh, int gw, int B,
                int round_bf16, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * tile_smem_floats(sep_geom(r), 1);
-  cudaError_t err = allow_smem(refine_sep_kernel<r>, smem);
+  const MedianCap m = kMedianIn ? median_cap(sep_geom(r), up) : MedianCap{0, 0};
+  const size_t smem = sizeof(float) * smem_floats(sep_geom(r), 1, 0, m);
+  cudaError_t err = allow_smem(refine_sep_kernel<r, kMedianIn>, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((up.w + kTW - 1) / kTW, (up.h + kTH - 1) / kTH, B);
-  refine_sep_kernel<r><<<grid, kThreads, smem, stream>>>(
+  refine_sep_kernel<r, kMedianIn><<<grid, kThreads, smem, stream>>>(
       i1, i2, uc, vc, up, u_out, v_out, cell_y, cell_x, gsum_u, gsum_v, gh,
       gw, round_bf16);
   return (int)cudaGetLastError();
+}
+
+template <int r>
+int launch_sep_m(const float* i1, const float* i2, const float* uc,
+                 const float* vc, const Upsample& up, float* u_out,
+                 float* v_out, const int* cell_y, const int* cell_x,
+                 float* gsum_u, float* gsum_v, int gh, int gw, int B,
+                 int round_bf16, int median_in, cudaStream_t stream) {
+  if (median_in)
+    return launch_sep<r, true>(i1, i2, uc, vc, up, u_out, v_out, cell_y, cell_x,
+                               gsum_u, gsum_v, gh, gw, B, round_bf16, stream);
+  return launch_sep<r, false>(i1, i2, uc, vc, up, u_out, v_out, cell_y, cell_x,
+                              gsum_u, gsum_v, gh, gw, B, round_bf16, stream);
 }
 
 }  // namespace
@@ -211,19 +233,19 @@ extern "C" int ofps_flow_refine(const float* i1, const float* i2,
                                 const int* cell_x, float* gsum_u,
                                 float* gsum_v, int gh, int gw, int B, int h,
                                 int w, int hc, int wc, int win, int round_bf16,
-                                void* stream) {
+                                int median_in, void* stream) {
   const Upsample up{yi, yw, xi, xw, h, w, hc, wc, scale};
   const cudaStream_t s = (cudaStream_t)stream;
   switch (win) {
     case 3:
-      return launch_sep<1>(i1, i2, uc, vc, up, u_out, v_out, cell_y, cell_x,
-                           gsum_u, gsum_v, gh, gw, B, round_bf16, s);
+      return launch_sep_m<1>(i1, i2, uc, vc, up, u_out, v_out, cell_y, cell_x,
+                             gsum_u, gsum_v, gh, gw, B, round_bf16, median_in, s);
     case 5:
-      return launch_sep<2>(i1, i2, uc, vc, up, u_out, v_out, cell_y, cell_x,
-                           gsum_u, gsum_v, gh, gw, B, round_bf16, s);
+      return launch_sep_m<2>(i1, i2, uc, vc, up, u_out, v_out, cell_y, cell_x,
+                             gsum_u, gsum_v, gh, gw, B, round_bf16, median_in, s);
     case 7:
-      return launch_sep<3>(i1, i2, uc, vc, up, u_out, v_out, cell_y, cell_x,
-                           gsum_u, gsum_v, gh, gw, B, round_bf16, s);
+      return launch_sep_m<3>(i1, i2, uc, vc, up, u_out, v_out, cell_y, cell_x,
+                             gsum_u, gsum_v, gh, gw, B, round_bf16, median_in, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,8 +1,11 @@
-// Full 2-D flow refine, warm/zero guard select and 3x3 median.
+// Full 2-D flow refine and warm/zero guard select.
 //
 // Replaces ofps_tpu/pallas/flow_refine_small.py::_small_kernel (launched by
 // flow_refine_small_uv), which held a whole coarse level in VMEM and fused
-// three steps into one launch; here they are three kernels:
+// three steps into one launch: the sweep, the guard and the 3x3 median.
+// Here the sweep and the guard are two kernels, and the median runs inside
+// the launch that reads its output (the next level's refine, with
+// kMedianIn: level_refine.cuh):
 //
 // * refine_2d_kernel: per pixel, the full (2s+1)^2 SAD sweep (win x win box
 //   mean, edge-padded candidates, 1e-3/px prior, 1e10 for out-of-image
@@ -15,8 +18,6 @@
 //   its refined flow (ops/flow_pyramid.py _coarse_guard).  The TPU kernel
 //   compared best integer-candidate costs instead; this is the XLA path's
 //   criterion.
-// * median_kernel: 3x3 median with edge clamping of both flow planes
-//   (ops/image.py median3x3), also used after the large levels >= 2.
 //
 // What bounds the sweep on the H100: the coarse levels are small (33 x 60
 // at B=4 and 67 x 120 at B=1 are ~8k pixels), so a one-thread-per-pixel
@@ -32,7 +33,13 @@
 // at s = 6; 160 CTAs at 33 x 60 B=4, 135 at 67 x 120 B=1) and 32 x 8 with 8
 // warps for s <= 2 (the big levels' 2-D mode at 1080x1920 s=1 and 540x960
 // s=2, and 67 x 120 s=1).
-// The guard and median read global memory directly (a few KB).
+//
+// The guard is bound by latency: 33 x 60 at B=4 is ~8k pixels, and a
+// thread per pixel summing its own win x win window warps every tap again
+// (~100 dependent gathers per thread).  Design: a 16 x 8 tile per CTA (80
+// CTAs at 33 x 60 B=4, 72 at 67 x 120 B=1) warps each pixel of the tile
+// and its win/2 halo once per flow into two shared |diff| planes, then
+// takes box_filter's row sums and column sums from there.
 
 #include "level_refine.cuh"
 
@@ -40,7 +47,7 @@ using namespace ofps;
 
 namespace {
 
-template <int TW, int TH, int r, int NT>
+template <int TW, int TH, int r, int NT, bool kMedianIn>
 __global__ void __launch_bounds__(NT)
 refine_2d_kernel(const float* __restrict__ i1, const float* __restrict__ i2,
                  const float* __restrict__ uc, const float* __restrict__ vc,
@@ -52,9 +59,10 @@ refine_2d_kernel(const float* __restrict__ i1, const float* __restrict__ i2,
   constexpr int TPP = NT / P;
   const Geom g{TW, TH, r, r + s};
   const int side = 2 * s + 1, K = side * side;
+  const MedianCap m = kMedianIn ? median_cap(g, up) : MedianCap{0, 0};
   // Each warp has its own diff and row-sum planes; every cost follows.
   extern __shared__ float4 smem4[];
-  const TileSmem t = carve(reinterpret_cast<float*>(smem4), g, kWarps);
+  const TileSmem t = carve(reinterpret_cast<float*>(smem4), g, kWarps, m);
   float* costs = t.rest;  // [K][TH][TW]
 
   const int h = up.h, w = up.w, b = blockIdx.z, tid = threadIdx.x;
@@ -64,7 +72,7 @@ refine_2d_kernel(const float* __restrict__ i1, const float* __restrict__ i2,
   uc += b * cplane;
   vc += b * cplane;
   const int oy = blockIdx.y * TH, ox = blockIdx.x * TW;
-  stage<NT>(g, t, i1, i2, uc, vc, up, oy, ox);
+  stage<NT, kMedianIn>(g, t, i1, i2, uc, vc, up, oy, ox, m);
 
   // Each warp sweeps candidates warp, warp + kWarps, ... through its own diff
   // and row-sum planes; only __syncwarp orders its passes.
@@ -119,72 +127,69 @@ refine_2d_kernel(const float* __restrict__ i1, const float* __restrict__ i2,
   const float sub_x = abs(bx) == s ? 0.0f : parabola(cxm, bc, cxp);
   const float sub_y = abs(by) == s ? 0.0f : parabola(cym, bc, cyp);
   const Tap ty = t.rt[ly + g.R], tx = t.ct[lx + g.R];
-  u_out[b * plane + (size_t)y * w + x] = upsampled(uc, up.wc, ty, tx, up.scale) + ((float)bx + sub_x);
-  v_out[b * plane + (size_t)y * w + x] = upsampled(vc, up.wc, ty, tx, up.scale) + ((float)by + sub_y);
+  const Coarse<kMedianIn> cf = coarse_flow<kMedianIn>(g, t, uc, vc, up, m);
+  u_out[b * plane + (size_t)y * w + x] = cf.at(cf.u, ty, tx, up.scale) + ((float)bx + sub_x);
+  v_out[b * plane + (size_t)y * w + x] = cf.at(cf.v, ty, tx, up.scale) + ((float)by + sub_y);
 }
 
-template <int TW, int TH, int r, int NT>
+template <int TW, int TH, int r, int NT, bool kMedianIn>
 int launch_2d(const float* i1, const float* i2, const float* uc,
               const float* vc, const Upsample& up, float* u_out, float* v_out,
               int B, int s, int round_bf16, cudaStream_t stream) {
   const int K = (2 * s + 1) * (2 * s + 1);
-  const size_t smem =
-      sizeof(float) * (tile_smem_floats(Geom{TW, TH, r, r + s}, NT / 32) + K * TW * TH);
+  const Geom g{TW, TH, r, r + s};
+  const MedianCap m = kMedianIn ? median_cap(g, up) : MedianCap{0, 0};
+  const size_t smem = sizeof(float) * smem_floats(g, NT / 32, K * TW * TH, m);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(refine_2d_kernel<TW, TH, r, NT>, smem);
+  cudaError_t err = allow_smem(refine_2d_kernel<TW, TH, r, NT, kMedianIn>, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((up.w + TW - 1) / TW, (up.h + TH - 1) / TH, B);
-  refine_2d_kernel<TW, TH, r, NT><<<grid, NT, smem, stream>>>(
+  refine_2d_kernel<TW, TH, r, NT, kMedianIn><<<grid, NT, smem, stream>>>(
       i1, i2, uc, vc, up, u_out, v_out, s, round_bf16);
   return (int)cudaGetLastError();
 }
 
-template <int r>
+template <int r, bool kMedianIn>
 int launch_2d_r(const float* i1, const float* i2, const float* uc,
                 const float* vc, const Upsample& up, float* u_out,
                 float* v_out, int B, int s, int round_bf16,
                 cudaStream_t stream) {
   if (s >= 3)
-    return launch_2d<8, 8, r, 512>(i1, i2, uc, vc, up, u_out, v_out, B, s, round_bf16, stream);
-  return launch_2d<32, 8, r, 256>(i1, i2, uc, vc, up, u_out, v_out, B, s, round_bf16, stream);
+    return launch_2d<8, 8, r, 512, kMedianIn>(i1, i2, uc, vc, up, u_out, v_out, B, s,
+                                              round_bf16, stream);
+  return launch_2d<32, 8, r, 256, kMedianIn>(i1, i2, uc, vc, up, u_out, v_out, B, s,
+                                             round_bf16, stream);
 }
 
-// Box-mean SAD of |a - warp(b, (U, V))| at (y, x), zero-padded taps.
-__device__ __forceinline__ float guard_sad(const float* __restrict__ a,
-                                           const float* __restrict__ b,
-                                           const float* __restrict__ U,
-                                           const float* __restrict__ V, int h,
-                                           int w, int y, int x, int r) {
-  float vs = 0.0f;
-  for (int ty = -r; ty <= r; ++ty) {
-    const int yy = y + ty;
-    float hs = 0.0f;
-    if (yy >= 0 && yy < h) {
-      for (int tx = -r; tx <= r; ++tx) {
-        const int xx = x + tx;
-        float d = 0.0f;
-        if (xx >= 0 && xx < w) {
-          const int i = yy * w + xx;
-          d = fabsf(a[i] - warp_sample(b, h, w, yy, xx, U[i], V[i]));
-        }
-        hs = hs + d;
-      }
-    }
-    vs = vs + hs;
-  }
-  const float win = (float)(2 * r + 1);
-  return vs / (win * win);
+template <int r>
+int launch_2d_m(const float* i1, const float* i2, const float* uc,
+                const float* vc, const Upsample& up, float* u_out,
+                float* v_out, int B, int s, int round_bf16, int median_in,
+                cudaStream_t stream) {
+  if (median_in)
+    return launch_2d_r<r, true>(i1, i2, uc, vc, up, u_out, v_out, B, s, round_bf16, stream);
+  return launch_2d_r<r, false>(i1, i2, uc, vc, up, u_out, v_out, B, s, round_bf16, stream);
 }
 
-__global__ void __launch_bounds__(kFlatW * kFlatH)
+constexpr int kGuardW = 16, kGuardH = 8, kGuardThreads = kGuardW * kGuardH;
+
+// Per pixel of a 16 x 8 tile: box-mean SAD of |a - warp(b, (U, V))| for the
+// warm and the zero-init flow, zero-padded taps, ties keep warm.  The
+// additions are box_filter's in its order (row sums 0 + d(x - r) + ... +
+// d(x + r), then column sums likewise), divided by (2r + 1)^2.
+__global__ void __launch_bounds__(kGuardThreads)
 guard_kernel(const float* __restrict__ a, const float* __restrict__ b,
              const float* __restrict__ u_w, const float* __restrict__ v_w,
              const float* __restrict__ u_0, const float* __restrict__ v_0,
              float* __restrict__ u_out, float* __restrict__ v_out, int h, int w,
              int r) {
-  const int x = blockIdx.x * kFlatW + threadIdx.x;
-  const int y = blockIdx.y * kFlatH + threadIdx.y;
-  if (x >= w || y >= h) return;
+  const int ah = kGuardH + 2 * r, aw = kGuardW + 2 * r, n = 2 * r + 1;
+  extern __shared__ float4 smem4[];
+  float* dw = reinterpret_cast<float*>(smem4);  // |diff| at the warm flow, ah x aw
+  float* d0 = dw + ah * aw;                     // at the zero-init flow
+  float* hw = d0 + ah * aw;                     // row sums, ah x kGuardW
+  float* h0 = hw + ah * kGuardW;
+  const int tid = threadIdx.x, oy = blockIdx.y * kGuardH, ox = blockIdx.x * kGuardW;
   const size_t off = blockIdx.z * (size_t)h * w;
   a += off;
   b += off;
@@ -192,47 +197,46 @@ guard_kernel(const float* __restrict__ a, const float* __restrict__ b,
   v_w += off;
   u_0 += off;
   v_0 += off;
-  const bool warm = guard_sad(a, b, u_w, v_w, h, w, y, x, r) <=
-                    guard_sad(a, b, u_0, v_0, h, w, y, x, r);
+  for (int i = tid; i < ah * aw; i += kGuardThreads) {
+    const int row = i / aw, col = i - row * aw;
+    const int y = oy - r + row, x = ox - r + col;
+    float ew = 0.0f, e0 = 0.0f;
+    if (y >= 0 && y < h && x >= 0 && x < w) {
+      const int o = y * w + x;
+      const float av = __ldg(a + o);
+      ew = fabsf(av - warp_sample(b, h, w, y, x, __ldg(u_w + o), __ldg(v_w + o)));
+      e0 = fabsf(av - warp_sample(b, h, w, y, x, __ldg(u_0 + o), __ldg(v_0 + o)));
+    }
+    dw[i] = ew;
+    d0[i] = e0;
+  }
+  __syncthreads();
+  for (int i = tid; i < ah * kGuardW; i += kGuardThreads) {
+    const int row = i / kGuardW, col = i - row * kGuardW;
+    const float* pw = dw + row * aw + col;
+    const float* p0 = d0 + row * aw + col;
+    float sw = 0.0f, s0 = 0.0f;
+    for (int t = 0; t < n; ++t) {
+      sw = sw + pw[t];
+      s0 = s0 + p0[t];
+    }
+    hw[i] = sw;
+    h0[i] = s0;
+  }
+  __syncthreads();
+  const int ly = tid / kGuardW, lx = tid - ly * kGuardW;
+  const int y = oy + ly, x = ox + lx;
+  if (y >= h || x >= w) return;
+  float sw = 0.0f, s0 = 0.0f;
+  for (int t = 0; t < n; ++t) {
+    sw = sw + hw[(ly + t) * kGuardW + lx];
+    s0 = s0 + h0[(ly + t) * kGuardW + lx];
+  }
+  const float area = (float)n * (float)n;
+  const bool warm = sw / area <= s0 / area;
   const int i = y * w + x;
   u_out[off + i] = warm ? u_w[i] : u_0[i];
   v_out[off + i] = warm ? v_w[i] : v_0[i];
-}
-
-__device__ __forceinline__ void exch(float* p, int i, int j) {
-  const float lo = fminf(p[i], p[j]), hi = fmaxf(p[i], p[j]);
-  p[i] = lo;
-  p[j] = hi;
-}
-
-__device__ __forceinline__ float median9(const float* __restrict__ src, int h,
-                                         int w, int y, int x) {
-  float p[9];
-  for (int dy = 0; dy < 3; ++dy)
-    for (int dx = 0; dx < 3; ++dx)
-      p[dy * 3 + dx] = src[clampi(y + dy - 1, 0, h - 1) * w + clampi(x + dx - 1, 0, w - 1)];
-  // Median-of-9 exchange network (Smith, Graphics Gems).
-  exch(p, 1, 2); exch(p, 4, 5); exch(p, 7, 8); exch(p, 0, 1); exch(p, 3, 4);
-  exch(p, 6, 7); exch(p, 1, 2); exch(p, 4, 5); exch(p, 7, 8); exch(p, 0, 3);
-  exch(p, 5, 8); exch(p, 4, 7); exch(p, 3, 6); exch(p, 1, 4); exch(p, 2, 5);
-  exch(p, 4, 7); exch(p, 4, 2); exch(p, 6, 4); exch(p, 4, 2);
-  return p[4];
-}
-
-__global__ void __launch_bounds__(kFlatW * kFlatH)
-median_kernel(const float* __restrict__ u, const float* __restrict__ v,
-              float* __restrict__ u_out, float* __restrict__ v_out, int h,
-              int w) {
-  const int x = blockIdx.x * kFlatW + threadIdx.x;
-  const int y = blockIdx.y * kFlatH + threadIdx.y;
-  if (x >= w || y >= h) return;
-  const size_t off = blockIdx.z * (size_t)h * w;
-  u_out[off + (size_t)y * w + x] = median9(u + off, h, w, y, x);
-  v_out[off + (size_t)y * w + x] = median9(v + off, h, w, y, x);
-}
-
-dim3 tile_grid(int B, int h, int w) {
-  return dim3((w + kFlatW - 1) / kFlatW, (h + kFlatH - 1) / kFlatH, B);
 }
 
 }  // namespace
@@ -244,17 +248,20 @@ extern "C" int ofps_flow_refine_small(const float* i1, const float* i2,
                                       float scale, float* u_out, float* v_out,
                                       int B, int h, int w, int hc, int wc,
                                       int search, int win, int round_bf16,
-                                      void* stream) {
+                                      int median_in, void* stream) {
   if (search < 0) return (int)cudaErrorInvalidValue;
   const Upsample up{yi, yw, xi, xw, h, w, hc, wc, scale};
   const cudaStream_t st = (cudaStream_t)stream;
   switch (win) {
     case 3:
-      return launch_2d_r<1>(i1, i2, uc, vc, up, u_out, v_out, B, search, round_bf16, st);
+      return launch_2d_m<1>(i1, i2, uc, vc, up, u_out, v_out, B, search, round_bf16,
+                            median_in, st);
     case 5:
-      return launch_2d_r<2>(i1, i2, uc, vc, up, u_out, v_out, B, search, round_bf16, st);
+      return launch_2d_m<2>(i1, i2, uc, vc, up, u_out, v_out, B, search, round_bf16,
+                            median_in, st);
     case 7:
-      return launch_2d_r<3>(i1, i2, uc, vc, up, u_out, v_out, B, search, round_bf16, st);
+      return launch_2d_m<3>(i1, i2, uc, vc, up, u_out, v_out, B, search, round_bf16,
+                            median_in, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -265,16 +272,14 @@ extern "C" int ofps_guard_select(const float* a, const float* b,
                                  const float* u_0, const float* v_0,
                                  float* u_out, float* v_out, int B, int h,
                                  int w, int win, void* stream) {
-  guard_kernel<<<tile_grid(B, h, w), dim3(kFlatW, kFlatH), 0,
-                 (cudaStream_t)stream>>>(a, b, u_w, v_w, u_0, v_0, u_out,
-                                         v_out, h, w, win / 2);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int ofps_median3x3(const float* u, const float* v, float* u_out,
-                              float* v_out, int B, int h, int w,
-                              void* stream) {
-  median_kernel<<<tile_grid(B, h, w), dim3(kFlatW, kFlatH), 0,
-                  (cudaStream_t)stream>>>(u, v, u_out, v_out, h, w);
+  // Two |diff| planes over the tile and its halo, two row-sum planes.
+  const int r = win / 2, ah = kGuardH + 2 * r, aw = kGuardW + 2 * r;
+  const size_t smem = sizeof(float) * (2 * ah * aw + 2 * ah * kGuardW);
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(guard_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((w + kGuardW - 1) / kGuardW, (h + kGuardH - 1) / kGuardH, B);
+  guard_kernel<<<grid, kGuardThreads, smem, (cudaStream_t)stream>>>(
+      a, b, u_w, v_w, u_0, v_0, u_out, v_out, h, w, r);
   return (int)cudaGetLastError();
 }

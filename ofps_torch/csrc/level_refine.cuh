@@ -24,6 +24,14 @@
 //
 // These are box_filter's additions in box_filter's order (no running sums,
 // which would round differently).
+//
+// Median prologue (kMedianIn): the pyramid filters each level >= 2 with a
+// 3x3 median (edge clamp) whose only reader is the next finer level's
+// upsample.  A median is an exact selection, so the CTA filters, in shared
+// memory, just the coarse region its upsample taps reach (a 1-pixel ring
+// of raw values around it, clamped to the coarse image) and the upsample
+// reads the filtered taps from there: the same bits as a separate median
+// launch, with no launch and no round trip through device memory.
 
 #pragma once
 
@@ -32,7 +40,7 @@
 
 namespace ofps {
 
-// Block of the one-thread-per-pixel kernels (warp, guard, median).
+// Block of the one-thread-per-pixel warp kernel.
 constexpr int kFlatW = 32, kFlatH = 8;
 constexpr float kBig = 1e10f;
 constexpr float kTieEps = 1e-3f;
@@ -75,6 +83,30 @@ __device__ __forceinline__ float upsampled(const float* __restrict__ c, int wc,
   return (tx.w0 * r0 + tx.w1 * r1) * scale;
 }
 
+// The coarser level's flow as the upsample reads it: global memory, or
+// (kSmem) the tile's 3x3-median-filtered region in shared memory, whose
+// first row and column are the coarse (y0, x0).
+template <bool kSmem>
+struct Coarse {
+  const float* u;
+  const float* v;
+  int pitch, y0, x0;
+
+  // Plane `c` (u or v) upsampled at the pixel with taps ty, tx.
+  __device__ __forceinline__ float at(const float* __restrict__ c, const Tap& ty,
+                                      const Tap& tx, float scale) const {
+    if constexpr (kSmem) {
+      const int a0 = (ty.i0 - y0) * pitch, a1 = (ty.i1 - y0) * pitch;
+      const int b0 = tx.i0 - x0, b1 = tx.i1 - x0;
+      const float r0 = ty.w0 * c[a0 + b0] + ty.w1 * c[a1 + b0];
+      const float r1 = ty.w0 * c[a0 + b1] + ty.w1 * c[a1 + b1];
+      return (tx.w0 * r0 + tx.w1 * r1) * scale;
+    } else {
+      return upsampled(c, pitch, ty, tx, scale);
+    }
+  }
+};
+
 // Bilinear sample of img (h x w, global memory, read-only for the launch)
 // at (x + u, y + v), coordinates clamped to the image (ops/image.py
 // warp_bilinear).  The four taps go through the read-only data cache.
@@ -115,43 +147,149 @@ struct Geom {
   __host__ __device__ constexpr int tap_count() const { return WH() + WW(); }
 };
 
+// Coarse pixels that the upsample taps of `span` consecutive outputs reach
+// along an axis resized from nc to n (a bilinear upsample or the identity):
+// at most ceil((span - 1) nc / n) + 2, and never more than nc.
+__host__ __device__ constexpr int region_cap(int span, int nc, int n) {
+  return (span - 1) * nc / n + 3 < nc ? (span - 1) * nc / n + 3 : nc;
+}
+
+// Capacity of a tile's median region: fh x fw filtered coarse pixels (0 x
+// 0 without the prologue), and the raw region with its 1-pixel ring.
+struct MedianCap {
+  int fh, fw;
+  __host__ __device__ constexpr int filtered() const { return fh * fw; }
+  __host__ __device__ constexpr int raw() const { return fh ? (fh + 2) * (fw + 2) : 0; }
+};
+
+__host__ __device__ constexpr MedianCap median_cap(const Geom g, const Upsample& up) {
+  return MedianCap{region_cap(g.WH(), up.hc, up.h), region_cap(g.WW(), up.wc, up.w)};
+}
+
 // A CTA's shared memory, in this order: the row and column taps, the
-// warped i2 (sW), i1 (sA), `planes` diff planes (sD, pitch DP) and as many
-// row-sum planes (sH, pitch TW), then whatever the kernel adds (rest).
+// warped i2 (sW), i1 (sA), the median-filtered coarse u and v (sM, each
+// m.filtered() floats; none without the prologue), `planes` diff planes
+// (sD, pitch DP) and as many row-sum planes (sH, pitch TW), then whatever
+// the kernel adds (rest).  The prologue's raw region lies from sD on,
+// before any pass writes there.
 struct TileSmem {
   Tap* rt;
   Tap* ct;
-  float *sW, *sA, *sD, *sH, *rest;
+  float *sW, *sA, *sM, *sD, *sH, *rest;
 };
 
-__host__ __device__ constexpr int tile_smem_floats(const Geom g, int planes) {
+__host__ __device__ constexpr int tile_smem_floats(const Geom g, int planes,
+                                                   const MedianCap m = MedianCap{0, 0}) {
   return 4 * g.tap_count() + round4(g.warp_floats()) + round4(g.a_floats()) +
-         planes * (g.d_floats() + g.h_floats());
+         2 * round4(m.filtered()) + planes * (g.d_floats() + g.h_floats());
 }
 
-__device__ __forceinline__ TileSmem carve(float* smem, const Geom g, int planes) {
+// Floats of dynamic shared memory for the tile, `planes` passes, `rest`
+// floats of the kernel's own and the median region `m`.
+__host__ __device__ constexpr int smem_floats(const Geom g, int planes, int rest,
+                                              const MedianCap m) {
+  const int tile = tile_smem_floats(g, planes, m) + rest;
+  const int raw_end = tile_smem_floats(g, 0, m) + 2 * m.raw();
+  return tile > raw_end ? tile : raw_end;
+}
+
+__device__ __forceinline__ TileSmem carve(float* smem, const Geom g, int planes,
+                                          const MedianCap m = MedianCap{0, 0}) {
   TileSmem t;
   t.rt = reinterpret_cast<Tap*>(smem);
   t.ct = t.rt + g.WH();
   t.sW = smem + 4 * g.tap_count();
   t.sA = t.sW + round4(g.warp_floats());
-  t.sD = t.sA + round4(g.a_floats());
+  t.sM = t.sA + round4(g.a_floats());
+  t.sD = t.sM + 2 * round4(m.filtered());
   t.sH = t.sD + planes * g.d_floats();
   t.rest = t.sH + planes * g.h_floats();
   return t;
 }
 
-// Stage the tile at (oy, ox): the row and column upsample taps of the warp
-// region (rt: WH rows, ct: WW columns, at clamped image coordinates), then
-// sW (warped i2, WH x WW) and sA (i1, AH x AW).  All NT threads of the CTA take part; ends
-// with __syncthreads().
+__device__ __forceinline__ void exch(float* p, int i, int j) {
+  const float lo = fminf(p[i], p[j]), hi = fmaxf(p[i], p[j]);
+  p[i] = lo;
+  p[j] = hi;
+}
+
+// Median of the 3x3 block whose top-left value is src[0] (row pitch
+// `pitch`), by the median-of-9 exchange network (Smith, Graphics Gems).
+__device__ __forceinline__ float median9(const float* src, int pitch) {
+  float p[9];
+#pragma unroll
+  for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx) p[dy * 3 + dx] = src[dy * pitch + dx];
+  exch(p, 1, 2); exch(p, 4, 5); exch(p, 7, 8); exch(p, 0, 1); exch(p, 3, 4);
+  exch(p, 6, 7); exch(p, 1, 2); exch(p, 4, 5); exch(p, 7, 8); exch(p, 0, 3);
+  exch(p, 5, 8); exch(p, 4, 7); exch(p, 3, 6); exch(p, 1, 4); exch(p, 2, 5);
+  exch(p, 4, 7); exch(p, 4, 2); exch(p, 6, 4); exch(p, 4, 2);
+  return p[4];
+}
+
+// The coarse flow that the upsample of the tile reads (after stage()'s
+// taps are in shared memory).  The taps are non-decreasing (a bilinear
+// resize), so the region runs from the first row's and column's i0 to the
+// last one's i1.
+template <bool kMedianIn>
+__device__ __forceinline__ Coarse<kMedianIn> coarse_flow(const Geom g, const TileSmem& t,
+                                                         const float* uc, const float* vc,
+                                                         const Upsample& up,
+                                                         const MedianCap m) {
+  if constexpr (kMedianIn) {
+    const int y0 = t.rt[0].i0, x0 = t.ct[0].i0;
+    return Coarse<true>{t.sM, t.sM + round4(m.filtered()), t.ct[g.WW() - 1].i1 - x0 + 1,
+                        y0, x0};
+  } else {
+    return Coarse<false>{uc, vc, up.wc, 0, 0};
+  }
+}
+
+// The median prologue: the raw coarse u and v over the taps' region plus a
+// clamped 1-pixel ring into sD, then their 3x3 medians into sM.  All NT
+// threads take part; ends with __syncthreads().
 template <int NT>
+__device__ __forceinline__ void median_prologue(const Geom g, const TileSmem& t,
+                                                const float* __restrict__ uc,
+                                                const float* __restrict__ vc,
+                                                const Upsample& up, const MedianCap m) {
+  const int tid = threadIdx.x;
+  const int y0 = t.rt[0].i0, x0 = t.ct[0].i0;
+  const int fh = t.rt[g.WH() - 1].i1 - y0 + 1, fw = t.ct[g.WW() - 1].i1 - x0 + 1;
+  const int rw = fw + 2, raw = (fh + 2) * rw;
+  float* ru = t.sD;
+  float* rv = t.sD + raw;
+  for (int i = tid; i < raw; i += NT) {
+    const int row = i / rw, col = i - row * rw;
+    const int o = clampi(y0 - 1 + row, 0, up.hc - 1) * up.wc + clampi(x0 - 1 + col, 0, up.wc - 1);
+    ru[i] = __ldg(uc + o);
+    rv[i] = __ldg(vc + o);
+  }
+  __syncthreads();
+  float* mu = t.sM;
+  float* mv = t.sM + round4(m.filtered());
+  for (int i = tid; i < fh * fw; i += NT) {
+    const int row = i / fw, col = i - row * fw;
+    mu[i] = median9(ru + row * rw + col, rw);
+    mv[i] = median9(rv + row * rw + col, rw);
+  }
+  __syncthreads();
+}
+
+// Stage the tile at (oy, ox): the row and column upsample taps of the warp
+// region (rt: WH rows, ct: WW columns, at clamped image coordinates), with
+// kMedianIn the median prologue, then sW (warped i2, WH x WW) and sA (i1,
+// AH x AW).  All NT threads of the CTA take part; ends with
+// __syncthreads().
+template <int NT, bool kMedianIn = false>
 __device__ __forceinline__ void stage(const Geom g, const TileSmem& t,
                                       const float* __restrict__ i1,
                                       const float* __restrict__ i2,
                                       const float* __restrict__ uc,
                                       const float* __restrict__ vc,
-                                      const Upsample& up, int oy, int ox) {
+                                      const Upsample& up, int oy, int ox,
+                                      const MedianCap m = MedianCap{0, 0}) {
   const int tid = threadIdx.x, h = up.h, w = up.w;
   const int WH = g.WH(), WW = g.WW();
   for (int i = tid; i < WH + WW; i += NT) {
@@ -162,13 +300,15 @@ __device__ __forceinline__ void stage(const Geom g, const TileSmem& t,
     }
   }
   __syncthreads();
+  if constexpr (kMedianIn) median_prologue<NT>(g, t, uc, vc, up, m);
+  const Coarse<kMedianIn> c = coarse_flow<kMedianIn>(g, t, uc, vc, up, m);
   for (int i = tid; i < WH * WW; i += NT) {
     const int row = i / WW, col = i - row * WW;
     const int gy = clampi(oy - g.R + row, 0, h - 1);
     const int gx = clampi(ox - g.R + col, 0, w - 1);
     const Tap ty = t.rt[row], tx = t.ct[col];
-    t.sW[i] = warp_sample(i2, h, w, gy, gx, upsampled(uc, up.wc, ty, tx, up.scale),
-                        upsampled(vc, up.wc, ty, tx, up.scale));
+    t.sW[i] = warp_sample(i2, h, w, gy, gx, c.at(c.u, ty, tx, up.scale),
+                          c.at(c.v, ty, tx, up.scale));
   }
   const int AH = g.AH(), AW = g.AW();
   for (int i = tid; i < AH * AW; i += NT) {

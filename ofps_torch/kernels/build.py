@@ -43,16 +43,14 @@ _F = ctypes.c_float
 
 # C entry points: name -> argtypes.  Every one returns cudaGetLastError().
 _SIGNATURES = {
+    # i1, i2, uc, vc, yi, yw, xi, xw, scale, u_out, v_out, cell_y, cell_x,
+    # gsum_u, gsum_v, gh, gw, B, h, w, hc, wc, win, round_bf16, median_in, stream
+    "ofps_flow_refine": [_P] * 8 + [_F] + [_P] * 6 + [_I] * 10 + [_P],
     # i1, i2, uc, vc, yi, yw, xi, xw, scale, u_out, v_out,
-    # cell_y, cell_x, gsum_u, gsum_v, gh, gw, B, h, w, hc, wc, win, round_bf16, stream
-    "ofps_flow_refine": [_P] * 8 + [_F] + [_P] * 6 + [_I] * 9 + [_P],
-    # i1, i2, uc, vc, yi, yw, xi, xw, scale, u_out, v_out,
-    # B, h, w, hc, wc, search, win, round_bf16, stream
-    "ofps_flow_refine_small": [_P] * 8 + [_F] + [_P] * 2 + [_I] * 8 + [_P],
+    # B, h, w, hc, wc, search, win, round_bf16, median_in, stream
+    "ofps_flow_refine_small": [_P] * 8 + [_F] + [_P] * 2 + [_I] * 9 + [_P],
     # a, b, u_w, v_w, u_0, v_0, u_out, v_out, B, h, w, win, stream
     "ofps_guard_select": [_P] * 8 + [_I] * 4 + [_P],
-    # u, v, u_out, v_out, B, h, w, stream
-    "ofps_median3x3": [_P] * 4 + [_I] * 3 + [_P],
     # img, u, v, out, B, h, w, stream
     "ofps_warp_bilinear": [_P] * 4 + [_I] * 3 + [_P],
 }
@@ -176,6 +174,10 @@ def _taps_np(n: int, on: int):
         idx[:, i] = nz[0], nz[-1]
         wts[0, i] = m[i, nz[0]]
         wts[1, i] = m[i, nz[-1]] if nz.size == 2 else 0.0
+    # The kernels' median prologue bounds a tile's coarse region by its
+    # first and last taps (csrc/level_refine.cuh coarse_flow).
+    if (np.diff(idx, axis=1) < 0).any():
+        raise ValueError(f"resize {n}->{on}: taps are not non-decreasing")
     return idx, wts
 
 

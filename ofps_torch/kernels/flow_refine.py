@@ -2,10 +2,11 @@
 ``csrc/flow_refine.cu``, replacing ``ofps_tpu/pallas/flow_refine.py``'s
 ``_refine_kernel``) and its plain PyTorch version.
 
-One level: bilinear 2x upsample of the coarse flow, exact bilinear warp of
-``i2``, the 5-cost search-1 cross with a per-axis parabola, and either the
-refined full-resolution ``(u, v)`` or, with a :class:`GridPlan`, the
-scatter-sum of the refined flow into the serving grid's cells.
+One level: bilinear 2x upsample of the coarse flow (``median_in``: of its
+3x3 median, taken in the kernel's staging), exact bilinear warp of ``i2``,
+the 5-cost search-1 cross with a per-axis parabola, and either the refined
+full-resolution ``(u, v)`` or, with a :class:`GridPlan`, the scatter-sum of
+the refined flow into the serving grid's cells.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 
 from ofps_torch.core.motion import grid_scatter_plan_np
 from ofps_torch.kernels import build
-from ofps_torch.ops.image import resize_bilinear, warp_bilinear
+from ofps_torch.ops.image import median3x3, resize_bilinear, warp_bilinear
 
 
 class GridPlan(NamedTuple):
@@ -66,10 +67,12 @@ def grid_sums_plain(u: torch.Tensor, plan: GridPlan) -> torch.Tensor:
 
 
 def flow_refine_plain(i1, i2, u, v, win: int, cost_dtype=torch.bfloat16,
-                      grid_plan: Optional[GridPlan] = None):
+                      grid_plan: Optional[GridPlan] = None, median_in: bool = False):
     """Plain PyTorch version of :func:`flow_refine`, on any device."""
     from ofps_torch.ops.flow_pyramid import _level_refine
 
+    if median_in:
+        u, v = median3x3(u), median3x3(v)
     h, w = i1.shape[-2], i1.shape[-1]
     if u.shape[-2:] != (h, w):
         u = resize_bilinear(u, h, w) * 2.0
@@ -84,17 +87,19 @@ def flow_refine_plain(i1, i2, u, v, win: int, cost_dtype=torch.bfloat16,
 
 
 def flow_refine(i1, i2, u, v, win: int, cost_dtype=torch.bfloat16,
-                grid_plan: Optional[GridPlan] = None):
+                grid_plan: Optional[GridPlan] = None, median_in: bool = False):
     """Refine one large level with search 1, axis-separable.
 
     ``i1``, ``i2``: (B, h, w) float32 level images; ``u``, ``v``: (B, hc,
     wc) flow, either the coarser level's (upsampled 2x in the kernel) or
-    already at (h, w).  Returns the refined (B, h, w) ``(u, v)``, or the
-    (B, gh, gw) cell sums of each when ``grid_plan`` is given.  CPU tensors
-    run :func:`flow_refine_plain`; CUDA tensors launch the kernel.
+    already at (h, w); ``median_in``: refine from the 3x3 median (edge
+    clamp) of ``(u, v)`` instead.  Returns the refined (B, h, w) ``(u,
+    v)``, or the (B, gh, gw) cell sums of each when ``grid_plan`` is given.
+    CPU tensors run :func:`flow_refine_plain`; CUDA tensors launch the
+    kernel.
     """
     if not build.on_cuda("flow_refine", i1):
-        return flow_refine_plain(i1, i2, u, v, win, cost_dtype, grid_plan)
+        return flow_refine_plain(i1, i2, u, v, win, cost_dtype, grid_plan, median_in)
     if cost_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"flow_refine: unsupported cost_dtype {cost_dtype}")
     if win not in build.KERNEL_WINDOWS:
@@ -127,13 +132,15 @@ def flow_refine(i1, i2, u, v, win: int, cost_dtype=torch.bfloat16,
         ptr(i1), ptr(i2), ptr(u), ptr(v), ptr(yi), ptr(yw), ptr(xi), ptr(xw),
         scale, ptr(u_out), ptr(v_out), ptr(cy), ptr(cx), ptr(gsu), ptr(gsv),
         gh, gw, bsz, h, w, hc, wc, win, int(cost_dtype == torch.bfloat16),
-        build.stream_ptr(i1.device),
+        int(median_in), build.stream_ptr(i1.device),
     )
     build.check(status, "ofps_flow_refine")
     flow_refine.launches += 1
+    flow_refine.median_in_launches += int(median_in)
     if grid_plan is not None:
         return gsu, gsv
     return u_out, v_out
 
 
 flow_refine.launches = 0
+flow_refine.median_in_launches = 0  # launches that took the fused median

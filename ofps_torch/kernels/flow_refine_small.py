@@ -1,14 +1,15 @@
-"""Full 2-D flow refine, warm/zero guard and 3x3 median (kernels in
+"""Full 2-D flow refine and warm/zero guard (kernels in
 ``csrc/flow_refine_small.cu``, replacing ``ofps_tpu/pallas/
 flow_refine_small.py``'s ``_small_kernel`` with its fused guard and median)
 and their plain PyTorch versions.
 
-The Pallas kernel fused the three steps into one launch; here they are
-three kernels launched in a row: the (2s+1)^2 sweep runs once from the warm
-init and once from zero, ``guard_select`` keeps the per-pixel winner, and
-``median3x3_uv`` filters the result (also after the large levels >= 2).
-The robust LK's coarsest level races its warm and zero inits through the
-same ``guard_select``.
+The Pallas kernel fused three steps into one launch.  Here the (2s+1)^2
+sweep runs once from the warm init and once from zero, ``guard_select``
+keeps the per-pixel winner, and the 3x3 median of the result runs inside
+the next level's refine (``median_in=True`` of :func:`flow_refine_small`
+and :func:`ofps_torch.kernels.flow_refine.flow_refine`), in the staging of
+its upsample.  The robust LK's coarsest level races its warm and zero
+inits through the same ``guard_select``.
 """
 
 from __future__ import annotations
@@ -20,10 +21,12 @@ from ofps_torch.ops.image import median3x3, resize_bilinear, warp_bilinear
 
 
 def flow_refine_small_plain(i1, i2, u, v, search: int, win: int,
-                            cost_dtype=torch.bfloat16):
+                            cost_dtype=torch.bfloat16, median_in: bool = False):
     """Plain PyTorch version of :func:`flow_refine_small`, on any device."""
     from ofps_torch.ops.flow_pyramid import _level_refine
 
+    if median_in:
+        u, v = median3x3_uv_plain(u, v)
     h, w = i1.shape[-2], i1.shape[-1]
     if u.shape[-2:] != (h, w):
         u = resize_bilinear(u, h, w) * 2.0
@@ -33,16 +36,17 @@ def flow_refine_small_plain(i1, i2, u, v, search: int, win: int,
 
 
 def flow_refine_small(i1, i2, u, v, search: int, win: int,
-                      cost_dtype=torch.bfloat16):
+                      cost_dtype=torch.bfloat16, median_in: bool = False):
     """Refine one level with the full (2s+1)^2 sweep (two-phase strict-<
     argmin in dy-outer order, per-axis parabola).
 
     ``i1``, ``i2``: (B, h, w); ``u``, ``v``: (B, hc, wc), the coarser
-    level's flow (upsampled 2x in the kernel) or already at (h, w).
-    Returns the refined (B, h, w) ``(u, v)``.
+    level's flow (upsampled 2x in the kernel) or already at (h, w);
+    ``median_in``: refine from the 3x3 median (edge clamp) of ``(u, v)``
+    instead.  Returns the refined (B, h, w) ``(u, v)``.
     """
     if not build.on_cuda("flow_refine_small", i1):
-        return flow_refine_small_plain(i1, i2, u, v, search, win, cost_dtype)
+        return flow_refine_small_plain(i1, i2, u, v, search, win, cost_dtype, median_in)
     if cost_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"flow_refine_small: unsupported cost_dtype {cost_dtype}")
     if win not in build.KERNEL_WINDOWS:
@@ -58,14 +62,16 @@ def flow_refine_small(i1, i2, u, v, search: int, win: int,
         i1.data_ptr(), i2.data_ptr(), u.data_ptr(), v.data_ptr(),
         yi.data_ptr(), yw.data_ptr(), xi.data_ptr(), xw.data_ptr(), scale,
         u_out.data_ptr(), v_out.data_ptr(), bsz, h, w, hc, wc, search, win,
-        int(cost_dtype == torch.bfloat16), build.stream_ptr(i1.device),
+        int(cost_dtype == torch.bfloat16), int(median_in), build.stream_ptr(i1.device),
     )
     build.check(status, "ofps_flow_refine_small")
     flow_refine_small.launches += 1
+    flow_refine_small.median_in_launches += int(median_in)
     return u_out, v_out
 
 
 flow_refine_small.launches = 0
+flow_refine_small.median_in_launches = 0  # launches that took the fused median
 
 
 def guard_select_plain(a, b, u_w, v_w, u_0, v_0, win: int):
@@ -101,26 +107,6 @@ guard_select.launches = 0
 
 
 def median3x3_uv_plain(u, v):
-    """Plain PyTorch version of :func:`median3x3_uv`, on any device."""
+    """3x3 median (edge clamp) of both flow planes: what ``median_in``
+    applies to the coarser flow, on any device."""
     return median3x3(u), median3x3(v)
-
-
-def median3x3_uv(u, v):
-    """3x3 median (edge clamp) of both flow planes, (B, h, w) each."""
-    if not build.on_cuda("median3x3_uv", u):
-        return median3x3_uv_plain(u, v)
-    build.require_cuda_f32("median3x3_uv", u, v)
-    if v.shape != u.shape or u.dim() != 3:
-        raise ValueError("median3x3_uv: expected two (B, h, w) planes")
-    bsz, h, w = u.shape
-    u_out, v_out = torch.empty_like(u), torch.empty_like(u)
-    status = build.library().ofps_median3x3(
-        u.data_ptr(), v.data_ptr(), u_out.data_ptr(), v_out.data_ptr(),
-        bsz, h, w, build.stream_ptr(u.device),
-    )
-    build.check(status, "ofps_median3x3")
-    median3x3_uv.launches += 1
-    return u_out, v_out
-
-
-median3x3_uv.launches = 0

@@ -233,14 +233,10 @@ class _Ops(NamedTuple):
     refine_sep: object
     refine_2d: object
     guard: object
-    median: object
 
 
-_KERNEL_OPS = _Ops(kfr.flow_refine, kfs.flow_refine_small, kfs.guard_select, kfs.median3x3_uv)
-_PLAIN_OPS = _Ops(
-    kfr.flow_refine_plain, kfs.flow_refine_small_plain, kfs.guard_select_plain,
-    kfs.median3x3_uv_plain,
-)
+_KERNEL_OPS = _Ops(kfr.flow_refine, kfs.flow_refine_small, kfs.guard_select)
+_PLAIN_OPS = _Ops(kfr.flow_refine_plain, kfs.flow_refine_small_plain, kfs.guard_select_plain)
 
 
 def _dense_flow_impl(
@@ -260,6 +256,10 @@ def _dense_flow_impl(
     ``coarse_search - 1``.  ``grid_plan`` (:func:`kernels.flow_refine.
     build_grid_plan`): the finest level emits the plan's (gh, gw) grid
     sums instead of full-resolution flow; requires :func:`grid_fusable`.
+
+    The 3x3 median after each level >= 2 (``params.median_levels``) runs
+    in the next level's refine (``median_in``), whose upsample is its only
+    reader; ``warm`` (level 1) is never filtered.
     """
     ops = _PLAIN_OPS if plain else _KERNEL_OPS
     h0, w0 = i1.shape[-2], i1.shape[-1]
@@ -281,6 +281,7 @@ def _dense_flow_impl(
         v = torch.clamp(resize_bilinear(v0.float(), h, w) * scale, -clamp, clamp)
 
     warm_out = None
+    median_pending = False
     for lvl in range(levels - 1, -1, -1):
         a, b = pyr1[lvl], pyr2[lvl]
         h, w = a.shape[-2], a.shape[-1]
@@ -296,12 +297,14 @@ def _dense_flow_impl(
         elif uses_axis_sep(params, search, h, w):
             plan = grid_plan if lvl == 0 else None
             u, v = ops.refine_sep(
-                a, b, u, v, params.win, params.cost_dtype, grid_plan=plan
+                a, b, u, v, params.win, params.cost_dtype, grid_plan=plan,
+                median_in=median_pending,
             )
         else:
-            u, v = ops.refine_2d(a, b, u, v, search, params.win, params.cost_dtype)
-        if params.median_levels and lvl >= 2:
-            u, v = ops.median(u, v)
+            u, v = ops.refine_2d(
+                a, b, u, v, search, params.win, params.cost_dtype, median_in=median_pending
+            )
+        median_pending = params.median_levels and lvl >= 2
         if lvl == 1 or levels == 1:
             warm_out = (u, v)
     return u, v, warm_out, FrameCache(pyr=tuple(pyr2))

@@ -10,7 +10,11 @@ process (``--one TREE``), which builds that tree's kernels and times every
 kernel case of ``chip_smoke.kernel_cases`` (B=4) through that tree's
 wrappers: ``ms`` (CUDA events around back-to-back calls) and ``device_ms``
 (a CUDA graph of 20 calls, replayed), and checks each case against the
-tree's plain version.  Prints one line per case, then the whole result
+tree's plain version.  A tree whose refine wrappers lack ``median_in``
+runs the "median3x3_uv" cases as its standalone median launch followed by
+the refine, so the A/B compares two launches with the one fused launch for
+the same function at the same shape.  Prints one line per case, the
+device ms summed over each kernel's cases per run, then the whole result
 as one JSON line.  Needs one CUDA card.
 """
 
@@ -96,6 +100,10 @@ def main() -> None:
                          f"{[round(r['device_ms'], 4) for r in row[label]]} agrees "
                          f"{all(r['agrees'] for r in row[label])}")
         print(f"{key}: " + " | ".join(cells))
+    for name in runs[0][1]["cases"]:
+        sums = [(label, sum(c["device_ms"] for c in run["cases"][name])) for label, run in runs]
+        print(f"{name} device_ms summed over its cases per run: "
+              + ", ".join(f"{label} {v:.4f}" for label, v in sums))
     print(json.dumps({"card": runs[0][1]["card"], "order": [r[0] for r in runs],
                       "digests": [r[1]["source_digest"] for r in runs], "cases": table}))
 

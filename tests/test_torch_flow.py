@@ -157,23 +157,79 @@ def test_dense_flow_matches_cold(scene):
     _assert_flow_close(got[..., 0], got[..., 1], ref[..., 0], ref[..., 1])
 
 
+def _launch_counts():
+    return (kfr.flow_refine.launches, kfr.flow_refine.median_in_launches,
+            kfs.flow_refine_small.launches, kfs.flow_refine_small.median_in_launches,
+            kfs.guard_select.launches)
+
+
 def test_cpu_tensors_take_the_plain_versions(scene):
     """On CPU tensors each wrapper returns its plain version's result and
-    launches nothing; an unsupported device raises."""
+    launches nothing; ``median_in`` refines the median-filtered coarse
+    flow; an unsupported device raises."""
     i1, i2, flow = scene
     a, b = _t(i1), _t(i2)
     uc = _t(flow[:, ::2, ::2, 0] * 0.5)
     vc = _t(flow[:, ::2, ::2, 1] * 0.5)
-    counts = (kfr.flow_refine.launches, kfs.flow_refine_small.launches)
+    filtered = kfs.median3x3_uv_plain(uc, vc)
+    z = torch.zeros_like(a)
+    counts = _launch_counts()
     for got, ref in (
         (kfr.flow_refine(a, b, uc, vc, 5), kfr.flow_refine_plain(a, b, uc, vc, 5)),
         (kfs.flow_refine_small(a, b, uc, vc, 2, 5), kfs.flow_refine_small_plain(a, b, uc, vc, 2, 5)),
-        (kfs.median3x3_uv(a, b), kfs.median3x3_uv_plain(a, b)),
+        (kfr.flow_refine(a, b, uc, vc, 5, median_in=True),
+         kfr.flow_refine_plain(a, b, *filtered, 5)),
+        (kfs.flow_refine_small(a, b, uc, vc, 2, 5, median_in=True),
+         kfs.flow_refine_small_plain(a, b, *filtered, 2, 5)),
+        (kfs.guard_select(a, b, a, b, z, z, 5), kfs.guard_select_plain(a, b, a, b, z, z, 5)),
     ):
         assert all(torch.equal(g, r) for g, r in zip(got, ref))
-    assert counts == (kfr.flow_refine.launches, kfs.flow_refine_small.launches)
+    assert counts == _launch_counts()
     with pytest.raises(ValueError):
-        kfs.median3x3_uv(a.to("meta"), b.to("meta"))
+        kfs.guard_select(*(t.to("meta") for t in (a, b, a, b, z, z)), 5)
+
+
+class _RecordingOps:
+    """The pyramid's ops with each call's kind and ``median_in`` recorded."""
+
+    def __init__(self, ops):
+        self.calls = []
+
+        def wrap(kind, fn):
+            def call(*args, **kwargs):
+                self.calls.append((kind, args[0].shape[-2:], kwargs.get("median_in", False)))
+                return fn(*args, **kwargs)
+            return call
+
+        self.ops = tfp._Ops(*(wrap(k, f) for k, f in zip(tfp._Ops._fields, ops)))
+
+
+@pytest.mark.parametrize(
+    "levels,median_levels,warm,expect",
+    [(4, True, True, [False, False, None, True, True, False]),
+     (4, False, True, [False, False, None, False, False, False]),
+     (3, True, False, [False, True, False]),
+     (2, True, True, [False, False, None, False])],
+)
+def test_median_runs_in_the_next_levels_refine(monkeypatch, levels, median_levels, warm, expect):
+    """The 3x3 median after each level >= 2 is no call of its own: the next
+    finer level's refine takes it (``median_in``); the coarsest level, its
+    guard and the levels after 1 and 0 never do.  The plain path takes the
+    same sequence and gives the median-then-refine result."""
+    i1, i2, _ = _scene(20, h=128, w=192, batch=1)
+    params = tfp.FlowParams(levels=levels, coarse_search=2, median_levels=median_levels,
+                            fuse_min_pixels=6000)
+    init = None
+    if warm:
+        init = torch.zeros((1, 32, 48, 2))
+    rec = _RecordingOps(tfp._PLAIN_OPS)
+    monkeypatch.setattr(tfp, "_PLAIN_OPS", rec.ops)
+    got = tfp.dense_flow(_t(i1), _t(i2), params, init_flow=init, plain=True)
+    assert [m if kind != "guard" else None for kind, _, m in rec.calls] == expect
+    assert tfp.effective_levels(params, 128, 192) == levels
+    assert {kind for kind, _, _ in rec.calls} == {"refine_sep", "refine_2d"} | (
+        {"guard"} if warm else set())
+    assert got.shape == (1, 128, 192, 2) and bool(torch.isfinite(got).all())
 
 
 def test_grid_sums_match_grid_downsample(scene):
@@ -279,7 +335,8 @@ def test_kernels_match_plain_on_cuda():
     rw = kfs.flow_refine_small_plain(a, b, uc, vc, 2, 5)
     r0 = kfs.flow_refine_small_plain(a, b, z, z, 2, 5)
     assert close(kfs.guard_select(a, b, *rw, *r0, 5), kfs.guard_select_plain(a, b, *rw, *r0, 5))
-    assert close(kfs.median3x3_uv(*rw), kfs.median3x3_uv_plain(*rw))
+    assert close(kfr.flow_refine(a, b, uc, vc, 5, median_in=True),
+                 kfr.flow_refine_plain(a, b, *kfs.median3x3_uv_plain(uc, vc), 5))
     plan = kfr.build_grid_plan(135, 240, 84, 150, border_px=4, device=dev)
     got = kfr.flow_refine(a, b, uc, vc, 5, grid_plan=plan)
     ref = kfr.flow_refine_plain(a, b, uc, vc, 5, grid_plan=plan)
@@ -313,25 +370,49 @@ def test_refine_2d_at_big_levels_on_cuda():
     "kind,h,w,batch,search",
     [("2d", 33, 60, 4, 6), ("2d", 67, 120, 1, 6), ("2d-ties", 33, 60, 1, 6),
      ("2d", 9, 33, 2, 6), ("2d", 33, 65, 2, 1), ("sep", 67, 121, 2, 1),
-     ("sep", 65, 129, 2, 1), ("sep-grid", 100, 130, 2, 1)],
+     ("sep", 65, 129, 2, 1), ("sep-grid", 100, 130, 2, 1),
+     ("2d-median", 67, 120, 4, 1), ("sep-median", 135, 240, 4, 1),
+     ("sep-median", 270, 480, 4, 1), ("sep-median", 540, 960, 4, 1),
+     ("guard", 33, 60, 4, 5), ("guard", 67, 120, 1, 7)],
 )
 def test_redesigned_kernels_match_plain_on_cuda(kind, h, w, batch, search):
     """On the card: the separable-cost-plane kernels against their plain
     versions at the coarse sweep's shapes (s=6 at 33x60 and 67x120), on the
     tie-heavy scene, and one row or column past their tiles (8x8 and 32x8
-    for the 2-D sweep, 64x32 for the axis-separable refine); under 0.1% of
-    pixels off by more than 1e-3 px, grid sums within 1e-5 normalized."""
+    for the 2-D sweep, 64x32 for the axis-separable refine); the serving
+    step's four refines that take the fused median (``median_in``, from
+    the (h//2, w//2) flow) against the plain median then the plain refine;
+    the guard's tiles at the serving step's and the robust LK's shapes
+    (``search`` is the guard's window there).  Under 0.1% of pixels off by
+    more than 1e-3 px, grid sums within 1e-5 normalized."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
     if kind == "2d-ties":
         i1, i2 = _tie_scene(h, w, search)
         uc = vc = np.zeros_like(i1)
+    elif kind == "guard":
+        i1, i2, flow = _scene(10, h=h, w=w, batch=batch)
+        a, b, uw, vw = (_t(x).to(dev) for x in (i1, i2, flow[..., 0], flow[..., 1]))
+        z = torch.zeros_like(a)
+        got = kfs.guard_select(a, b, uw, vw, z, z, search)
+        ref = kfs.guard_select_plain(a, b, uw, vw, z, z, search)
+        d = torch.maximum((got[0] - ref[0]).abs(), (got[1] - ref[1]).abs())
+        assert (d > 1e-3).float().mean().item() < 1e-3
+        return
     else:
         i1, i2, flow = _scene(10, h=h, w=w, batch=batch)
         uc = flow[:, ::2, ::2, 0] * 0.5
         vc = flow[:, ::2, ::2, 1] * 0.5
+        if kind.endswith("median"):
+            uc, vc = uc[:, : h // 2, : w // 2], vc[:, : h // 2, : w // 2]
     a, b, uc, vc = (_t(x).to(dev) for x in (i1, i2, uc, vc))
+    if kind == "sep-median":
+        got = kfr.flow_refine(a, b, uc, vc, 5, median_in=True)
+        ref = kfr.flow_refine_plain(a, b, *kfs.median3x3_uv_plain(uc, vc), 5)
+    elif kind == "2d-median":
+        got = kfs.flow_refine_small(a, b, uc, vc, search, 5, median_in=True)
+        ref = kfs.flow_refine_small_plain(a, b, *kfs.median3x3_uv_plain(uc, vc), search, 5)
     if kind == "sep-grid":
         plan = kfr.build_grid_plan(h, w, 9, 11, border_px=5, device=dev)
         got = kfr.flow_refine(a, b, uc, vc, 5, grid_plan=plan)
@@ -339,7 +420,7 @@ def test_redesigned_kernels_match_plain_on_cuda(kind, h, w, batch, search):
         for g, r, n in zip(got, ref, (w, h)):
             assert ((g - r).abs() / (plan.counts * n)).max().item() <= 1e-5
         return
-    if kind == "sep":
+    elif kind == "sep":
         got, ref = kfr.flow_refine(a, b, uc, vc, 5), kfr.flow_refine_plain(a, b, uc, vc, 5)
     else:
         got = kfs.flow_refine_small(a, b, uc, vc, search, 5)

@@ -7,7 +7,9 @@ each wrapper runs its kernel's own indexing, halos, passes, argmin order
 and grid reduction on CPU tensors, against its plain version.  The tolerance
 is the one ``chip_smoke.py`` holds the card to: under 0.1% of pixels off by
 more than 1e-3 px, none by more than one candidate step, grid sums within
-1e-5 normalized; the warp, guard and median exact.  The kernels multiply
+1e-5 normalized; the warp and the guard exact, and a refine with the
+fused median (``median_in``) exactly the refine of the median-filtered
+flow (a median is an exact selection).  The kernels multiply
 the box sum by 1/win^2 (as PyTorch does on the card), where the CPU plain
 version divides: near-ties may flip.  What the CUDA compiler makes of the
 sources is tested on the card only (``-m cuda``).
@@ -183,16 +185,89 @@ def test_flow_refine_small_ties_emulated(emulated, search):
 
 
 def test_flat_kernels_emulated(emulated):
-    """Warp, guard and median: exact against their plain versions."""
+    """Warp and guard exact against their plain versions; the fused median
+    gives the refine kernels exactly what filtering their input first
+    gives them."""
     a, b = _scene(8, 33, 70, 2)
     u, v = _flow(9, 2, 33, 70, 1.0)
     assert torch.equal(kwarp.warp_bilinear(b, u, v), kwarp.warp_bilinear_plain(b, u, v))
     z = torch.zeros_like(a)
+    uc, vc = _flow(10, 2, 17, 35, 1.0)
+    filtered = kfs.median3x3_uv_plain(uc, vc)
     for got, ref in (
         (kfs.guard_select(a, b, u, v, z, z, 5), kfs.guard_select_plain(a, b, u, v, z, z, 5)),
-        (kfs.median3x3_uv(u, v), kfs.median3x3_uv_plain(u, v)),
+        (kfr.flow_refine(a, b, uc, vc, 5, median_in=True), kfr.flow_refine(a, b, *filtered, 5)),
+        (kfs.flow_refine_small(a, b, uc, vc, 1, 5, median_in=True),
+         kfs.flow_refine_small(a, b, *filtered, 1, 5)),
     ):
         assert all(torch.equal(g, r) for g, r in zip(got, ref))
+
+
+@pytest.mark.parametrize(
+    "h,w,batch,win", [(67, 121, 1, 3), (67, 121, 1, 5), (33, 65, 2, 3), (33, 65, 2, 5)]
+)
+def test_flow_refine_median_in_emulated(emulated, h, w, batch, win):
+    """Axis-separable refine with the 3x3 median in its staging, on partial
+    64x32 tiles: within the tolerance of the plain median-then-refine, and
+    bit-exact with the kernel on the filtered flow; counted as a fused
+    launch."""
+    a, b = _scene(12, h, w, batch)
+    uc, vc = _flow(13, batch, (h + 1) // 2, (w + 1) // 2, 2.0)
+    before = (kfr.flow_refine.launches, kfr.flow_refine.median_in_launches)
+    got = kfr.flow_refine(a, b, uc, vc, win, median_in=True)
+    assert (kfr.flow_refine.launches, kfr.flow_refine.median_in_launches) == (
+        before[0] + 1, before[1] + 1)
+    _assert_close(got, kfr.flow_refine_plain(a, b, uc, vc, win, median_in=True))
+    filtered = kfs.median3x3_uv_plain(uc, vc)
+    assert all(torch.equal(g, r) for g, r in zip(got, kfr.flow_refine(a, b, *filtered, win)))
+
+
+@pytest.mark.parametrize(
+    "h,w,batch,search,win",
+    [(67, 120, 2, 1, 5), (9, 33, 1, 1, 3), (20, 36, 1, 2, 7), (30, 50, 1, 3, 5)],
+)
+def test_flow_refine_small_median_in_emulated(emulated, h, w, batch, search, win):
+    """The 2-D sweep with the fused median: 32x8 tiles (s <= 2; 9x33 is one
+    tile row whose region touches all four coarse edges) and 8x8 tiles (s =
+    3), against the plain median-then-sweep and exactly the kernel on the
+    filtered flow."""
+    a, b = _scene(14, h, w, batch)
+    uc, vc = _flow(15, batch, (h + 1) // 2, (w + 1) // 2, 0.5)
+    before = kfs.flow_refine_small.median_in_launches
+    got = kfs.flow_refine_small(a, b, uc, vc, search, win, median_in=True)
+    assert kfs.flow_refine_small.median_in_launches == before + 1
+    _assert_close(got, kfs.flow_refine_small_plain(a, b, uc, vc, search, win, median_in=True))
+    filtered = kfs.median3x3_uv_plain(uc, vc)
+    ref = kfs.flow_refine_small(a, b, *filtered, search, win)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+
+
+@pytest.mark.parametrize("win", [3, 5, 7])
+def test_guard_select_tiles_emulated(emulated, win):
+    """The guard's 16x8 tiles with a win/2 halo, on a partial tile edge
+    (33x70), exact against the plain version: the right half moved by (2,
+    1) px, so the warm flow (near that shift) wins there and the zero flow
+    on the left; a zero block where both SADs are exactly 0 and the warm
+    side must be kept."""
+    h, w, batch = 33, 70, 2
+    rng = np.random.default_rng(16)
+    tex = gaussian_filter(rng.standard_normal((batch, h + 20, w + 20)), (0, 2, 2)) * 100
+    tex[:, 14:30, 30:60] = 0.0
+    b_np = tex[:, 10 : 10 + h, 10 : 10 + w]
+    a_np = b_np.copy()
+    a_np[:, :, w // 2 :] = tex[:, 9 : 9 + h, 8 + w // 2 : 8 + w]
+    a, b = _t(a_np), _t(b_np)
+    u_w, v_w = _flow(17, batch, h, w, -2.0)
+    u_w, v_w = -2.0 + 0.1 * (u_w + 2.0), -1.0 + 0.1 * (v_w + 1.0)
+    z = torch.zeros_like(a)
+    got = kfs.guard_select(a, b, u_w, v_w, z, z, win)
+    ref = kfs.guard_select_plain(a, b, u_w, v_w, z, z, win)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    zero_side = got[0] == 0.0
+    assert 0.2 < zero_side.float().mean().item() < 0.8
+    # Inside the zero block, away from its edge by the window and the shift,
+    # both SADs are 0: the tie keeps the warm flow.
+    assert torch.equal(got[0][:, 9:15, 26:36], u_w[:, 9:15, 26:36])
 
 
 def test_kernel_rejects_unbuilt_window(emulated):
