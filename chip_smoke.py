@@ -17,11 +17,13 @@ Phases, each printing its own line; any failure exits non-zero:
    level's refine (``median_in``), so its cases are the serving step's four
    median-taking refines, held against the plain median then the plain
    refine, and timed beside the same refines without it;
-4. slice: ``StreamPipeline`` (almeida + block_motion, serving config) at
-   1080p, B=4, 8 frames of a textured scene moving 3 px per frame with a
-   patch moving 12 px per frame; checks that every kernel ran as often per
-   step as the pyramid needs, the shift is recovered, poses are finite, the
-   detector reports the patch, and the plain path agrees;
+4. slice: ``StreamPipeline`` (almeida + homography + block_motion, the
+   serving configuration of ``bench.py``) at 1080p, B=4, 8 frames of a
+   textured scene moving 3 px per frame with a patch moving 12 px per
+   frame; checks that every kernel ran as often per step as the pyramid
+   needs, the shift is recovered, both estimators' poses are finite, the
+   detector reports the patch, and the plain path agrees (homography's
+   rotation family by family: see ``homography_vs_plain``);
 5. refine_2d: ``dense_flow`` at 1080p with ``axis_sep=False`` and with
    ``search=2``, whose big levels run the 2-D sweep; checks the launches
    and the plain path;
@@ -30,12 +32,19 @@ Phases, each printing its own line; any failure exits non-zero:
    left third at 2% contrast, for the block matcher and the robust LK (warp
    and guard kernels); checks the launches, that the mask drops some cells
    and keeps others, the 3 px pan in the valid cells and the plain path;
-7. timing: ms/step of the serving step at B=1, 4, 8 and of the cv step for
-   both algorithms, kernel and plain paths; each kernel against its plain
-   version and, where one exists, one PyTorch library call (CUDA events
-   around back-to-back calls, ``ms``), and each kernel and library call
-   alone on the device (``device_ms``: a CUDA graph of N calls replayed,
-   so the host's launch cost drops out).
+7. estimators: a synthetic camera rotation (0.3-0.6 deg per stream, 20% of
+   the vectors corrupted) on the 84x150 serving lattice, B=4, through the
+   consumers' CUDA graph and eagerly with the same draws (equal within
+   1e-6), homography against almeida per stream (within 0.05 deg), and the
+   masked path (a third of the points invalid, ``dense=False``);
+8. timing: ms/step of the serving step at B=1, 4, 8 and of the cv step for
+   both algorithms, kernel and plain paths; the consumers' graph at B=4
+   with almeida alone, homography alone and both, and its CUDA kernels per
+   replay (``torch.profiler`` on the same calls made eagerly); each kernel
+   against its plain version and, where one exists, one PyTorch library
+   call (CUDA events around back-to-back calls, ``ms``), and each kernel
+   and library call alone on the device (``device_ms``: a CUDA graph of N
+   calls replayed, so the host's launch cost drops out).
 
 Prints one JSON line of per-kernel results, the ``nvidia-smi`` line, then,
 as the last line, ``{"ok": true, "device": {...}}``.
@@ -71,6 +80,13 @@ CV_PAN_TOL = 0.25
 # The cv phase dims the left third of its frames to this contrast, so the
 # contrast mask drops cells (valid must be neither none nor all of them).
 LOW_CONTRAST = 0.02
+# Rotations: the kernel and plain paths within 1e-4 (quaternion
+# components); graph and eager within 1e-6; homography and almeida on the
+# synthetic rotation within 0.05 deg.
+ROT_PATH_TOL = 1e-4
+GRAPH_TOL = 1e-6
+EST_AGREE_DEG = 0.05
+ESTIMATORS = ("almeida", "homography")
 
 # Roofline of one H100 SXM (published, dense, at 700 W): HBM3 bytes/s and
 # float32 operations/s outside the tensor cores.
@@ -420,7 +436,9 @@ def compare(torch, got, ref, kind):
     return d.max().item(), share, finite and share < MAX_MISMATCH_SHARE
 
 
-def make_pipeline(device, plain: bool):
+def make_pipeline(device, plain: bool, estimators=ESTIMATORS):
+    """The serving configuration: ``estimators`` (bench.py's almeida +
+    homography by default) + block_motion, serving mode, 1080p camera."""
     from ofps_torch.core.camera import StandardCamera
     from ofps_torch.detectors.base import create_detector
     from ofps_torch.estimators.base import create_estimator
@@ -428,7 +446,7 @@ def make_pipeline(device, plain: bool):
 
     return StreamPipeline(
         StandardCamera.create(W / H, 60.0),
-        [create_estimator("almeida")],
+        [create_estimator(name) for name in estimators],
         create_detector("block_motion"),
         emit_dense_flow=False,
         device=device,
@@ -482,6 +500,84 @@ def run_cv(torch, device, frames, use_rlof: bool, plain: bool):
         outs.append(step(frames[t - 1], frames[t], prev))
         prev = outs[-1][0]
     return outs
+
+
+def frame_draws(torch, pipe, seed: int, frames: int, batch: int, n: int, device):
+    """The draws ``step_from_frames`` takes, frame by frame, from a
+    generator seeded with ``seed`` (estimator by estimator)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [tuple(e.draw(gen, (batch,), n, device) for e in pipe.estimators)
+            for _ in range(frames)]
+
+
+def homography_vs_plain(torch, pipe_p, outs, outs_p, draws):
+    """Homography's delta rotations on the kernel path against the plain
+    path's, frame by frame and stream by stream, with the same draws.
+
+    The decomposition's two families have equal |t| in exact arithmetic,
+    so outside the pure-rotation branch the estimator's pick between them
+    is decided by rounding, and two paths whose grids differ in a few
+    entries may pick different families.  So each kernel-path rotation is
+    held against the nearer of the plain path's two family rotations
+    (computed on the plain grid with the same draws).  Returns (max |diff|
+    to the nearer family, the number of picks of the other family, the
+    max |diff| between the two paths' picks)."""
+    from ofps_torch.core.motion import field_to_sparse
+    from ofps_torch.estimators import homography as he
+
+    i = ESTIMATORS.index("homography")
+    est = pipe_p.estimators[i]
+    near_err, flips, picked_err = 0.0, 0, 0.0
+    for o, p, d in zip(outs, outs_p, draws):
+        h = he.refined_homography(None, est.params, field_to_sparse(p.grid), pipe_p.camera,
+                                  dense=True, fit_idx=d[i])
+        quats, tnorm = he.rotation_candidates(h, pipe_p.camera)  # (B, 2, 4), (B, 2)
+        near = (quats - o.delta_rot[i][:, None, :]).abs().amax(dim=-1).min(dim=-1)
+        near_err = max(near_err, near.values.max().item())
+        flips += int((near.indices != torch.argmin(tnorm, dim=-1)).sum().item())
+        picked_err = max(picked_err, (o.delta_rot[i] - p.delta_rot[i]).abs().max().item())
+    return near_err, flips, picked_err
+
+
+def rotation_grid(torch, device, batch: int, seed: int):
+    """(batch, 84, 150, 2) serving-lattice grids of a camera rotation per
+    stream (0.3-0.6 deg about a random axis, through the port's
+    ``camera.delta``) with 20% of the vectors replaced by N(0, 0.01)
+    noise, and the rotations (batch, 4)."""
+    from ofps_torch.core import quat
+    from ofps_torch.core.camera import StandardCamera
+    from ofps_torch.core.motion import field_to_sparse, grid_size_for
+
+    gw, gh = grid_size_for(W, H)
+    cam = StandardCamera.create(W / H, 60.0)
+    g = torch.Generator(device=device).manual_seed(seed)
+    pos = field_to_sparse(torch.zeros((gh, gw, 2), device=device)).pos
+    axis = torch.randn((batch, 3), generator=g, device=device)
+    axis = axis / torch.linalg.vector_norm(axis, dim=-1, keepdim=True)
+    half = torch.deg2rad(0.3 + 0.3 * torch.rand((batch, 1), generator=g, device=device)) / 2
+    q = torch.cat([torch.cos(half), torch.sin(half) * axis], dim=-1)
+    motion = torch.stack([cam.delta(pos, quat.to_matrix4(q[b])) for b in range(batch)])
+    bad = torch.rand(motion.shape[:-1], generator=g, device=device) < 0.2
+    noise = 0.01 * torch.randn(motion.shape, generator=g, device=device)
+    motion = torch.where(bad[..., None], noise, motion)
+    return motion.reshape(batch, gh, gw, 2).contiguous(), q
+
+
+def consumer_kernels(torch, pipe, state, grid, draws):
+    """CUDA kernels and their summed device ms in one eager ``_consume``
+    (the calls its CUDA graph replays), from ``torch.profiler``; (None,
+    None) where the profiler sees no CUDA events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    pipe._consume(state.est, state.rot, state.pos, grid, draws)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pipe._consume(state.est, state.rot, state.pos, grid, draws)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return None, None
+    return len(kernels), sum(e.time_range.elapsed_us() for e in kernels) / 1e3
 
 
 def main() -> None:
@@ -567,7 +663,7 @@ def main() -> None:
     last = outs[-1]
     u_px = last.grid[:, 8:-8, 8:-8, 0] * W
     med = u_px.median().item()
-    rot_ok = all(bool(torch.isfinite(o.rot[0]).all()) for o in outs)
+    rot_ok = all(bool(torch.isfinite(r).all()) for o in outs for r in o.rot + o.delta_rot)
     det = last.detection
     det_ok = (
         bool(det.detected.all())
@@ -575,10 +671,17 @@ def main() -> None:
         and bool(((det.area >= 0) & (det.area <= 196)).all())
         and bool((det.mask.sum(dim=(-1, -2)).to(torch.int32) == det.area).all())
     )
+    from ofps_torch.core import quat
+
+    delta_deg = {
+        name: [round(math.degrees(quat.angle(o.delta_rot[i][0]).item()), 4) for o in outs]
+        for i, name in enumerate(ESTIMATORS)
+    }
     phase("slice", f"grid {tuple(last.grid.shape)} interior median u*W="
-          f"{med:.4f} px (expect {SHIFT}) rot finite={rot_ok} "
-          f"rot[0]={last.rot[0][0].tolist()} detected={det.detected.tolist()} "
-          f"area={det.area.tolist()} patch detected and well-formed={det_ok}")
+          f"{med:.4f} px (expect {SHIFT}) rot finite (both estimators, every frame)="
+          f"{rot_ok} rot[0]={[r[0].tolist() for r in last.rot]} detected="
+          f"{det.detected.tolist()} area={det.area.tolist()} patch detected and "
+          f"well-formed={det_ok}; delta angle per frame, stream 0, deg: {delta_deg}")
     if not abs(med - SHIFT) <= 0.1:
         fail(f"3 px shift not recovered: median {med}")
     if not (rot_ok and det_ok):
@@ -593,10 +696,16 @@ def main() -> None:
     diffs = torch.stack([(o.grid - p.grid).abs() for o, p in zip(outs, outs_p)])
     g_share = (diffs > 1e-5).float().mean().item()
     r_err = max((o.rot[0] - p.rot[0]).abs().max().item() for o, p in zip(outs, outs_p))
+    n_grid = last.grid.shape[1] * last.grid.shape[2]
+    h_near, h_flips, h_picked = homography_vs_plain(
+        torch, pipe_p, outs, outs_p,
+        frame_draws(torch, pipe_p, SEED, frames.shape[0], batch, n_grid, device))
     phase("slice", f"kernel path vs plain path over 8 frames: grid entries off "
           f"by >1e-5 {g_share:.2e} (max {diffs.max().item():.3e} normalized), "
-          f"rot max |diff| {r_err:.3e}")
-    if not (g_share <= 1e-2 and r_err <= 1e-4):
+          f"almeida rot max |diff| {r_err:.3e}; homography delta rot max |diff| to "
+          f"the plain path's nearer family {h_near:.3e}, picks of the other family "
+          f"{h_flips} of {batch * frames.shape[0]}, max |diff| of the picks {h_picked:.3e}")
+    if not (g_share <= 1e-2 and r_err <= ROT_PATH_TOL and h_near <= ROT_PATH_TOL):
         fail("kernel path and plain path disagree")
     del pipe, pipe_p, state, outs, outs_p, diffs
 
@@ -681,7 +790,51 @@ def main() -> None:
             fail(f"{path}: kernel path and plain path disagree")
         del outs, outs_p
 
-    # 7. timing
+    # 7. the estimators on a synthetic camera rotation (B=4, serving
+    # lattice): the consumers' CUDA graph against the same calls made
+    # eagerly, homography against almeida, then the masked path.
+    from ofps_torch.core import quat
+    from ofps_torch.core.motion import SparseFlow, field_to_sparse
+
+    pipe = make_pipeline(device, plain=False)
+    state = pipe.init_state(batch, H, W)
+    rgrid, q_true = rotation_grid(torch, device, batch, SEED + 3)
+    n_grid = rgrid.shape[1] * rgrid.shape[2]
+    gen_e = torch.Generator(device=device).manual_seed(SEED + 4)
+    draws = tuple(e.draw(gen_e, (batch,), n_grid, device) for e in pipe.estimators)
+    graphed = pipe._run_consumers(state, rgrid, draws, None)
+    eager = pipe._consume(state.est, state.rot, state.pos, rgrid, draws)
+    torch.cuda.synchronize()
+    g_err = max((a - b).abs().max().item()
+                for g, e in zip(graphed[:4], eager[:4]) for a, b in zip(g, e))
+    det_same = all(bool(torch.equal(a, b)) for a, b in zip(graphed[5], eager[5]))
+    truth = quat.conj(q_true)  # the estimators return the inverse rotation
+
+    def degrees(a, b):
+        return [round(math.degrees(x), 5) for x in quat.angle_to(a, b).tolist()]
+
+    dense_deg = degrees(graphed[2][0], graphed[2][1])
+    err_deg = {name: degrees(graphed[2][i], truth) for i, name in enumerate(ESTIMATORS)}
+    mask = (torch.rand((batch, n_grid), generator=gen_e, device=device) >= 1 / 3).float()
+    sparse = field_to_sparse(rgrid)
+    masked = SparseFlow(sparse.pos, sparse.motion, mask)
+    masked_rot = [e.estimate((), masked, pipe.camera, gen_e, dense=False)[0]
+                  for e in pipe.estimators]
+    masked_deg = degrees(*masked_rot)
+    finite = all(bool(torch.isfinite(r).all()) for r in (*graphed[2], *eager[2], *masked_rot))
+    phase("estimators", f"synthetic rotation B={batch} on the {tuple(rgrid.shape[1:3])} "
+          f"lattice ({[round(math.degrees(x), 4) for x in quat.angle(q_true).tolist()]} "
+          f"deg, 20% corrupted): graph vs eager max |diff| {g_err:.3e}, detection "
+          f"equal={det_same}; homography vs almeida per stream {dense_deg} deg; error "
+          f"vs the true rotation {err_deg} deg; masked ({int(mask.sum().item())} of "
+          f"{batch * n_grid} points valid, dense=False) homography vs almeida "
+          f"{masked_deg} deg; finite={finite}")
+    if not (g_err <= GRAPH_TOL and det_same and finite):
+        fail("the consumers' graph and eager calls disagree, or a rotation is not finite")
+    if not max(dense_deg + masked_deg) <= EST_AGREE_DEG:
+        fail("homography and almeida disagree on the synthetic rotation")
+
+    # 8. timing
     from ofps_torch.decoders.cv import CvFlowStep
     from ofps_torch.ops.flow_pyramid import dense_flow_warm
 
@@ -717,6 +870,31 @@ def main() -> None:
                   f"{ms:.3f} ms/step ({ms / b:.3f} ms/frame): dense flow "
                   f"{f_ms:.3f} ms, estimator+detector {c_ms:.3f} ms | {smi}")
             del pipe, st, fr, out
+    # The consumers' graph at B=4 with each estimator alone and both, on
+    # the serving step's grid of the 3 px scene, and its kernels per replay.
+    fr = moving_frames(torch, 2, batch, H, W, device)
+    consumers_ms, consumer_kernel_counts = {}, {}
+    grid4 = None
+    for names in (("almeida",), ("homography",), ESTIMATORS):
+        pipe = make_pipeline(device, False, names)
+        st = pipe.init_state(batch, H, W)
+        if grid4 is None:
+            st1, _ = pipe.step_from_frames(st, fr[0], gen)
+            grid4 = pipe.step_from_frames(st1, fr[1], gen)[1].grid
+        d = tuple(e.draw(gen, (batch,), n_grid, device) for e in pipe.estimators)
+        key = "+".join(names)
+        consumers_ms[key] = time_ms(
+            torch, lambda p=pipe, s=st, d=d: p._run_consumers(s, grid4, d, None), 10)
+        kernels, kernel_ms = consumer_kernels(torch, pipe, st, grid4, d)
+        consumer_kernel_counts[key] = kernels
+        phase("timing", f"consumers' graph B={batch}, {key} + block_motion: "
+              f"{consumers_ms[key]:.3f} ms per replay; "
+              + (f"{kernels} CUDA kernels, {kernel_ms:.3f} ms of kernel time in the same "
+                 f"calls made eagerly (torch.profiler)" if kernels else
+                 "kernels per replay not measured (the profiler saw no CUDA events)")
+              + f" | {smi}")
+        del pipe, st
+    del fr, grid4
     cv_ms = {}
     prev_flow = torch.full((H, W, 2), SHIFT, dtype=torch.float32, device=device)
     for use_rlof in (False, True):
@@ -778,7 +956,8 @@ def main() -> None:
     phase("timing", f"warp_bilinear device time loses to grid_sample's at "
           f"{loses if loses else 'no shape'} | {smi}")
 
-    if not all(math.isfinite(v) for v in [*step_ms.values(), *cv_ms.values()]):
+    if not all(math.isfinite(v) for v in [
+            *step_ms.values(), *cv_ms.values(), *consumers_ms.values()]):
         fail("non-finite timing")
     main_path = {"flow_refine_2d": "refine_2d", "warp_bilinear": "cv_rlof"}
     print(json.dumps({"kernels": [
@@ -799,6 +978,9 @@ def main() -> None:
         }
         for name in REPLACES
     ], "step_ms": {f"{p}_B{b}": v for (p, b), v in step_ms.items()},
+        "step_config": "+".join(ESTIMATORS) + "+block_motion",
+        "consumers_ms": {f"{k}_B{batch}": v for k, v in consumers_ms.items()},
+        "consumer_kernels": {f"{k}_B{batch}": v for k, v in consumer_kernel_counts.items()},
         "cv_step_ms": cv_ms, "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -103,3 +103,12 @@ class StandardCamera(NamedTuple):
         """``(fx, fy)`` of the intrinsics as float32 scalars."""
         fy = 0.5 / torch.tan(torch.deg2rad(_f32(self.fov_y_deg)) * 0.5)
         return fy / _f32(self.aspect), fy
+
+    def intrinsics(self) -> torch.Tensor:
+        """K (3, 3) with principal point (0.5, 0.5) (float32, CPU)."""
+        fx, fy = self.point_angle_focals()
+        k = torch.zeros(3, 3, dtype=torch.float32)
+        k[0, 0], k[0, 2] = fx, 0.5
+        k[1, 1], k[1, 2] = fy, 0.5
+        k[2, 2] = 1.0
+        return k

@@ -106,6 +106,33 @@ def to_matrix4(q: torch.Tensor) -> torch.Tensor:
     return m
 
 
+def from_matrix3(r: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion from a rotation matrix (..., 3, 3): branchless
+    Shepperd (the strongest of four constructions, first maximum), sign
+    canonicalized to w >= 0."""
+    m00, m01, m02 = r[..., 0, 0], r[..., 0, 1], r[..., 0, 2]
+    m10, m11, m12 = r[..., 1, 0], r[..., 1, 1], r[..., 1, 2]
+    m20, m21, m22 = r[..., 2, 0], r[..., 2, 1], r[..., 2, 2]
+    tr = m00 + m11 + m22
+    cases = torch.stack(
+        [
+            torch.stack([1.0 + tr, m21 - m12, m02 - m20, m10 - m01], dim=-1),
+            torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20], dim=-1),
+            torch.stack([m02 - m20, m01 + m10, 1.0 - m00 + m11 - m22, m12 + m21], dim=-1),
+            torch.stack([m10 - m01, m02 + m20, m12 + m21, 1.0 - m00 - m11 + m22], dim=-1),
+        ],
+        dim=-2,
+    )  # (..., 4 cases, 4)
+    mags = torch.stack(
+        [1.0 + tr, 1.0 + m00 - m11 - m22, 1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22],
+        dim=-1,
+    )
+    best = torch.argmax(mags, dim=-1)  # first maximum
+    q = torch.gather(cases, -2, best[..., None, None].expand(best.shape + (1, 4)))[..., 0, :]
+    q = normalize(q)
+    return torch.where(q[..., :1] < 0, -q, q)
+
+
 def rotate_vec(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Rotate a 3-vector by a unit quaternion."""
     qv = q[..., 1:]

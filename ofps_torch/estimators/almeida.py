@@ -3,9 +3,10 @@
 
 All hypotheses of a batch of streams are fitted and scored at once on
 ``(B, 3, H)`` / ``(B, H, S)`` planes, then the winning inlier set is refit.
-Only the serving configuration's ``dense=True`` RANSAC is ported: the point
-set is the all-valid densified grid, so the eval subset is a static numpy
-selection (``ops.robust.dense_eval_indices``).
+``dense=True`` (the serving configuration's all-valid densified grid) takes
+static draws and a static eval subset (``ops.robust.dense_eval_indices``);
+``dense=False`` draws valid points with the masked sampler and compacts the
+eval subset from the mask at run time (``ops.robust.eval_subset``).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from ofps_torch.ops.geometry_uv import (
     qmul,
     solve3_planes,
 )
-from ofps_torch.ops.robust import dense_eval_indices, sample_indices
+from ofps_torch.ops.robust import dense_eval_subset, draw_dense, eval_subset, sample_indices
 
 EPS = 0.001 * math.pi / 180.0
 ALPHA = 0.5
@@ -109,15 +110,6 @@ def solve_ypr_weighted(camera, pos, motion, weights) -> torch.Tensor:
     return torch.stack(q, dim=-1)
 
 
-@functools.lru_cache(maxsize=16)
-def _eval_subset(n: int, n_eval: int, device: str):
-    """Device (eidx, w_e) of the eval subset of an all-valid set of n."""
-    if n_eval < n:
-        eidx, w_e = dense_eval_indices(n, n_eval)
-        return torch.from_numpy(eidx).to(device, torch.int64), torch.from_numpy(w_e).to(device)
-    return torch.arange(n, device=device), torch.ones(n, device=device)
-
-
 def _inlier_bound(inlier_angle_deg, like: torch.Tensor):
     """Squared inlier angle in radians, in float32 like the JAX package
     (``deg2rad`` then square); a Python number stays on the host."""
@@ -136,12 +128,6 @@ def _take(plane: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(plane, -1, flat).reshape(idx.shape)
 
 
-def draw_fit_idx(generator, lead, n: int, num_iters: int, device) -> torch.Tensor:
-    """(*lead, num_iters, 3) minimal-sample draws over n all-valid points."""
-    idx = sample_indices(generator, n, num_iters * math.prod(lead), 3, device=device)
-    return idx.reshape(tuple(lead) + (num_iters, 3))
-
-
 def solve_ypr_ransac(
     generator: Optional[torch.Generator],
     camera,
@@ -152,23 +138,25 @@ def solve_ypr_ransac(
     dense: bool = True,
     fit_idx: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """RANSAC over (..., N) all-valid flows: ``num_iters`` minimal 3-point
-    fits scored on a shared eval subset, then a refit on the winner's
-    inliers.  Returns (..., 4).
+    """RANSAC over (..., N) flows: ``num_iters`` minimal 3-point fits
+    scored on a shared eval subset, then a refit on the winner's inliers.
+    Returns (..., 4).
 
+    ``dense=True`` asserts an all-ones mask (static draws and eval subset);
+    ``dense=False`` samples and evaluates only valid (mask > 0.5) points.
     ``fit_idx``: optional (H, 3) or (..., H, 3) hypothesis draws (tests
     inject the JAX package's draws); otherwise drawn from ``generator``.
     """
-    if not dense:
-        raise NotImplementedError("only the dense=True (all-valid) RANSAC is ported")
     pos, motion, mask = flow
-    torch._assert_async(torch.all(mask == 1.0), "dense=True needs an all-ones mask")
     n = pos.shape[-2]
     lead = pos.shape[:-2]
     dev = pos.device
     n_eval = min(num_samples, n)
+    if dense:
+        torch._assert_async(torch.all(mask == 1.0), "dense=True needs an all-ones mask")
     if fit_idx is None:
-        fit_idx = draw_fit_idx(generator, lead, n, num_iters, dev)
+        fit_idx = (draw_dense(generator, lead, n, num_iters, 3, dev) if dense
+                   else sample_indices(generator, n, num_iters, 3, w=mask))
     fit_idx = fit_idx.to(device=dev, dtype=torch.int64)
 
     def fit_plane(plane):  # (..., N) -> (..., 3, H)
@@ -181,9 +169,16 @@ def solve_ypr_ransac(
         fit_plane(mask), dim=-2,
     )  # (w, x, y, z) planes, each (..., H)
 
-    eidx, w_e = _eval_subset(n, n_eval, str(dev))
-    pxe, pye = pos[..., 0][..., eidx], pos[..., 1][..., eidx]  # (..., S)
-    mue, mve = motion[..., 0][..., eidx], motion[..., 1][..., eidx]
+    if dense:
+        eidx, w_e = (x.expand(lead + x.shape) for x in dense_eval_subset(n, n_eval, str(dev)))
+    else:
+        eidx, w_e = eval_subset(mask, n_eval)
+
+    def eval_plane(plane):  # (..., N) -> (..., S)
+        return torch.gather(plane, -1, eidx)
+
+    pxe, pye = eval_plane(pos[..., 0]), eval_plane(pos[..., 1])
+    mue, mve = eval_plane(motion[..., 0]), eval_plane(motion[..., 1])
 
     rcols = tuple(c[..., None] for c in qmat(qconj(fits)))  # (..., H, 1)
     du, dv = delta_planes(camera, pxe[..., None, :], pye[..., None, :], rcols)
@@ -191,7 +186,7 @@ def solve_ypr_ransac(
     vv = mve[..., None, :] - dv
     au, av = point_angle_planes(camera, pxe[..., None, :] + du, pye[..., None, :] + dv)
     err2 = (vu * torch.cos(au)) ** 2 + (vv * torch.cos(av)) ** 2
-    inliers = (err2 <= _inlier_bound(inlier_angle_deg, pos)) & (w_e > 0.5)  # (..., H, S)
+    inliers = (err2 <= _inlier_bound(inlier_angle_deg, pos)) & (w_e[..., None, :] > 0.5)  # (..., H, S)
     counts = inliers.sum(dim=-1)
     best = torch.argmax(counts, dim=-1, keepdim=True)  # first maximum
     best_count = torch.gather(counts, -1, best)
@@ -228,8 +223,8 @@ def make_almeida(**kwargs) -> EstimatorInstance:
         estimate=estimate,
         dyn_defaults=lambda: {"inlier_angle_deg": params.inlier_angle_deg},
         draw=(
-            (lambda generator, lead, n, device: draw_fit_idx(
-                generator, lead, n, params.num_iters, device))
+            (lambda generator, lead, n, device: draw_dense(
+                generator, lead, n, params.num_iters, 3, device))
             if params.use_ransac else None
         ),
     )

@@ -21,7 +21,7 @@ import torch
 from ofps_torch.core import quat
 
 _REGISTRY: Dict[str, Callable[..., "EstimatorInstance"]] = {}
-_BUILTIN = ("almeida",)
+_BUILTIN = ("almeida", "homography")
 
 
 @dataclasses.dataclass

@@ -13,6 +13,7 @@ import torch
 
 from ofps_torch.detectors.block_motion import BlockMotionParams
 from ofps_torch.estimators.almeida import AlmeidaParams
+from ofps_torch.estimators.homography import HomographyParams
 from ofps_torch.ops.flow_lk import LKParams
 from ofps_torch.ops.flow_pyramid import FlowParams, FrameCache
 from ofps_torch.parallel.stream import StreamState
@@ -37,6 +38,10 @@ def almeida_params_from_jax(p) -> AlmeidaParams:
     return AlmeidaParams(**p._asdict())
 
 
+def homography_params_from_jax(p) -> HomographyParams:
+    return HomographyParams(**p._asdict())
+
+
 def block_motion_params_from_jax(p) -> BlockMotionParams:
     return BlockMotionParams(**p._asdict())
 
@@ -47,7 +52,8 @@ def _t(x, device) -> torch.Tensor:
 
 def state_from_jax(state, device) -> StreamState:
     """Port a JAX ``StreamState`` (fields read as numpy arrays).  The
-    estimators' carries must be stateless (``()``), as almeida's is."""
+    estimators' carries must be stateless (``()``), as almeida's and
+    homography's are."""
     if any(len(e) for e in state.est):
         raise ValueError("only stateless estimator carries can be ported")
     return StreamState(

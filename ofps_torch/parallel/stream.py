@@ -3,7 +3,8 @@
 
     frames (B, H, W) -> dense flow (pyramid of hand kernels) -> grid sums
       -> (B, gh, gw, 2) normalized grid -> SparseFlow (B, G, 2)
-         |-> every estimator (dense=True RANSAC) -> pose integration
+         |-> every estimator (dense=True RANSAC: almeida, homography)
+         |     -> pose integration
          '-> detector (static-lattice detect_field)
 
 Rotation/position state, estimator carry and the dense-flow warm start all
@@ -199,8 +200,10 @@ class StreamPipeline:
 
         The first frame per stream (``has_prev`` 0) yields a zero flow
         field, hence identity pose deltas.  ``draws``: optional per-estimator
-        random inputs ((B, H, 3) RANSAC indices for almeida) in place of
-        drawing them from ``generator``; parity tests inject JAX's.
+        random inputs in place of drawing them from ``generator``, in
+        estimator order (RANSAC point indices: (B, 200, 3) for almeida,
+        (B, 91, 4) for homography at their defaults); parity tests inject
+        JAX's.
         """
         if gray.device.type != self.device.type:
             raise ValueError(f"frames on {gray.device}, pipeline on {self.device}")

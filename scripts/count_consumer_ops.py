@@ -1,0 +1,80 @@
+#!/usr/bin/env python3
+"""Count the PyTorch operations one estimator call dispatches, on the CPU.
+
+    python3 scripts/count_consumer_ops.py [--batch 4]
+
+On the CUDA graph of the serving step's consumers nearly every dispatched
+operation is one kernel launch, so this count (views excluded) is the
+launch budget of an estimator, without a card.  For almeida and
+homography at the 1080p serving grid (84x150, dense draws), it prints the
+total and, for homography, the split by the innermost of its stages
+(``ops/solve``, ``ops/epipolar``, ``ops/robust`` helpers; the rest is the
+stage code of ``robust_fit``, ``ops/homography`` and the estimator).
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+# Operations that only make a view: no kernel.
+VIEWS = {
+    "view", "expand", "slice", "select", "unsqueeze", "squeeze", "transpose", "t",
+    "permute", "alias", "_unsafe_view", "unbind", "split", "diagonal", "as_strided",
+    "detach", "lift_fresh", "_reshape_alias",
+}
+STAGES = (
+    "gauss_solve", "eigh3x3", "svd3x3", "inv3x3", "smallest_eigvecs_inverse_iteration",
+    "hartley_normalization", "masked_median",
+)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batch", type=int, default=4, help="streams")
+    args = ap.parse_args()
+    sys.path.insert(0, str(ROOT))
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from ofps_torch.core.camera import StandardCamera
+    from ofps_torch.core.motion import field_to_sparse
+    from ofps_torch.estimators.base import create_estimator
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.by_stage = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket.__name__ not in VIEWS:
+                frame, stage = sys._getframe(1), "stage code"
+                while frame is not None:
+                    if frame.f_code.co_name in STAGES:
+                        stage = frame.f_code.co_name
+                        break
+                    frame = frame.f_back
+                self.by_stage[stage] += 1
+            return func(*args, **(kwargs or {}))
+
+    cam = StandardCamera.create(1920 / 1080, 60.0)
+    gen = torch.Generator().manual_seed(0)
+    grid = torch.randn((args.batch, 84, 150, 2), generator=gen) * 1e-3
+    flow = field_to_sparse(grid)
+    for name in ("almeida", "homography"):
+        est = create_estimator(name)
+        draws = est.draw(gen, (args.batch,), 84 * 150, "cpu")
+        est.estimate((), flow, cam, dense=True, fit_idx=draws)  # fill the caches
+        with Count() as count:
+            est.estimate((), flow, cam, dense=True, fit_idx=draws)
+        split = "" if name == "almeida" else f": {dict(count.by_stage.most_common())}"
+        print(f"{name} B={args.batch}: {sum(count.by_stage.values())} operations{split}",
+              flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,7 +1,8 @@
 """Parity of the port's almeida estimator and RANSAC helpers with ofps_tpu.
 
 Fields are synthetic camera rotations on the serving grid's lattice
-(150 x 90 points, all valid), computed with the JAX camera, plus noise and
+(150 x 90 points, all valid, or a third invalid for the masked path),
+computed with the JAX camera, plus noise and
 outliers.  Quaternions must agree within 1e-5: the same float32 solve
 repeated 30 times, differing only in transcendental ulps and reduction
 order.  torch cannot reproduce jax.random, so the RANSAC parity injects
@@ -16,7 +17,9 @@ import torch
 
 from ofps_torch.core.camera import StandardCamera as TCam
 from ofps_torch.core.motion import SparseFlow as TSparse
+from ofps_torch.core.quat import angle_to as quat_angle_to
 from ofps_torch.estimators import almeida as talm
+from ofps_torch.estimators.base import create_estimator
 from ofps_torch.ops import robust as trob
 from ofps_tpu.core import quat as jq
 from ofps_tpu.core.camera import StandardCamera as JCam
@@ -81,6 +84,32 @@ def test_solve_ypr_ransac_dense_matches_with_injected_draws(seed):
         200, 0.05, 1000, dense=True, fit_idx=torch.from_numpy(fit_idx),
     )
     np.testing.assert_allclose(batched.numpy(), np.stack([got.numpy()] * 2), rtol=0, atol=1e-7)
+
+
+@jax.jit
+def _j_ransac_masked(key, pos, mot, mask):
+    return jalm.solve_ypr_ransac(key, JCAM, JSparse(pos, mot, mask), 200, 0.05, 1000)
+
+
+@pytest.mark.parametrize("seed", [6, 7])
+def test_solve_ypr_ransac_masked_matches_with_injected_draws(seed):
+    """dense=False: a third of the points invalid; the masked sampler's
+    draws (JAX's, injected) and the eval subset compacted from the mask."""
+    pos, mot, _ = _rotation_field(seed)
+    mask = (np.random.default_rng(seed + 10).uniform(size=len(pos)) >= 1 / 3).astype(np.float32)
+    key = jax.random.PRNGKey(seed)
+    ref = _j_ransac_masked(key, jnp.asarray(pos), jnp.asarray(mot), jnp.asarray(mask))
+    fit_idx = np.array(jrob.sample_indices(jax.random.split(key)[0], jnp.asarray(mask), 200, 3))
+    assert (mask[fit_idx] == 1.0).all()
+    flow = TSparse(_t(pos), _t(mot), _t(mask))
+    got = talm.solve_ypr_ransac(None, TCam.create(150 / 90, 60.0), flow, 200, 0.05, 1000,
+                                dense=False, fit_idx=torch.from_numpy(fit_idx))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=QUAT_TOL)
+    # Through the registered estimator, drawing from a generator: only
+    # valid points are drawn, and the answer is a rotation near JAX's.
+    r, _, _ = create_estimator("almeida").estimate(
+        (), flow, TCam.create(150 / 90, 60.0), torch.Generator().manual_seed(seed))
+    assert float(quat_angle_to(r, _t(ref))) < np.deg2rad(0.01)
 
 
 def test_estimator_instance_matches_lsq():

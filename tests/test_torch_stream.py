@@ -1,12 +1,14 @@
 """The slice end to end: the port's StreamPipeline against ofps_tpu's.
 
-Configuration: almeida (dense RANSAC) + block_motion, serving mode
+Configuration: almeida (dense RANSAC), alone or with homography, +
+block_motion, serving mode
 (``emit_dense_flow=False``), 96 x 160 frames, B=2, 3 pyramid levels with
 the two finer levels on the axis-separable refine (so the port's finest
 level emits grid sums, the JAX CPU path densifies full-resolution flow).
 The JAX pipeline runs two frames, its state is handed over with
 ``interop.state_from_jax``, and one more frame goes through both with the
-RANSAC draws JAX's key split produced injected into the port.
+RANSAC draws JAX's key split produced injected into the port (the JAX
+stream splits its key into one key per estimator and stream).
 
 Tolerances: grid entries within 1e-5 (normalized units) for at least 99.5%
 and none off by more than 1.5/W (one flow-candidate flip at a ~1-pixel
@@ -21,9 +23,12 @@ import torch
 from scipy.ndimage import gaussian_filter
 
 from ofps_torch import interop
+from ofps_torch.core import quat as tq
 from ofps_torch.core.camera import StandardCamera as TCam
+from ofps_torch.core.motion import field_to_sparse
 from ofps_torch.detectors.base import create_detector as t_det
 from ofps_torch.device import check_fp32_policy, resolve_device
+from ofps_torch.estimators import homography as the
 from ofps_torch.estimators.base import create_estimator as t_est
 from ofps_torch.parallel.stream import StreamPipeline as TPipe
 from ofps_tpu.core.camera import StandardCamera as JCam
@@ -52,18 +57,39 @@ def _frames(n, seed=0):
     return out
 
 
-def _pipes():
-    jp = JPipe(JCam.create(W / H, 60.0), [j_est("almeida")], j_det("block_motion"),
+ESTIMATOR_SETS = [("almeida",), ("almeida", "homography")]
+
+
+def _pipes(names=("almeida",)):
+    jp = JPipe(JCam.create(W / H, 60.0), [j_est(n) for n in names], j_det("block_motion"),
                flow_params=JPARAMS, emit_dense_flow=False)
-    tp = TPipe(TCam.create(W / H, 60.0), [t_est("almeida")], t_det("block_motion"),
+    tp = TPipe(TCam.create(W / H, 60.0), [t_est(n) for n in names], t_det("block_motion"),
                flow_params=interop.flow_params_from_jax(JPARAMS), emit_dense_flow=False,
                device="cpu")
     return jp, tp
 
 
-def test_slice_matches_jax_after_state_handover():
+def _jax_draws(key, names, n):
+    """The draws JAX's _consume made: one key per estimator and stream
+    (estimator-major); almeida samples from its key's first split (200 x
+    3), homography's robust_fit from the key itself (91 x 4)."""
+    keys = jax.random.split(key, len(names) * B)
+    draws = []
+    for i, name in enumerate(names):
+        ks = keys[i * B : (i + 1) * B]
+        if name == "almeida":
+            d = [j_sample_indices(jax.random.split(k)[0], jnp.ones(n), 200, 3, dense=True)
+                 for k in ks]
+        else:
+            d = [j_sample_indices(k, jnp.ones(n), 91, 4, dense=True) for k in ks]
+        draws.append(torch.from_numpy(np.stack([np.asarray(x) for x in d])))
+    return tuple(draws)
+
+
+@pytest.mark.parametrize("names", ESTIMATOR_SETS, ids="+".join)
+def test_slice_matches_jax_after_state_handover(names):
     frames = _frames(3)
-    jp, tp = _pipes()
+    jp, tp = _pipes(names)
     step = jax.jit(jp.step_from_frames)
     state = jp.init_state(B, H, W)
     for t in range(2):
@@ -71,17 +97,10 @@ def test_slice_matches_jax_after_state_handover():
     key = jax.random.PRNGKey(2)
     ref_state, ref = step(state, jnp.asarray(frames[2]), key)
 
-    # The draws JAX's _consume made: one key per stream, solve_ypr_ransac's
-    # first split, the dense sampler over the all-valid grid.
     n = ref.grid.shape[1] * ref.grid.shape[2]
-    draws = np.stack([
-        np.asarray(j_sample_indices(jax.random.split(k)[0], jnp.ones(n), 200, 3, dense=True))
-        for k in jax.random.split(key, B)
-    ])
+    draws = _jax_draws(key, names, n)
     t_state = interop.state_from_jax(state, "cpu")
-    new_state, out = tp.step_from_frames(
-        t_state, torch.from_numpy(frames[2]), draws=(torch.from_numpy(draws),)
-    )
+    new_state, out = tp.step_from_frames(t_state, torch.from_numpy(frames[2]), draws=draws)
 
     grid, ref_grid = out.grid.numpy(), np.asarray(ref.grid)
     assert grid.shape == ref_grid.shape == (B, 90, 150, 2)
@@ -91,6 +110,8 @@ def test_slice_matches_jax_after_state_handover():
     np.testing.assert_allclose(out.rot[0].numpy(), np.asarray(ref.rot[0]), rtol=0, atol=1e-4)
     np.testing.assert_allclose(out.delta_rot[0].numpy(), np.asarray(ref.delta_rot[0]),
                                rtol=0, atol=1e-4)
+    if "homography" in names:
+        _hold_homography(tp, names.index("homography"), out, ref, t_state, draws)
     det, ref_det = out.detection, ref.detection
     np.testing.assert_array_equal(det.detected.numpy(), np.asarray(ref_det.detected))
     np.testing.assert_array_equal(det.area.numpy(), np.asarray(ref_det.area))
@@ -102,6 +123,31 @@ def test_slice_matches_jax_after_state_handover():
     assert (dw <= 1e-4).mean() >= 0.995 and dw.max() <= 1.0 + 1e-3
     np.testing.assert_array_equal(got["pyr"][0], frames[2])
     np.testing.assert_array_equal(got["has_prev"], np.ones(B, np.float32))
+
+
+def _hold_homography(tp, i, out, ref, t_state, draws):
+    """Homography's rotations against JAX's within 1e-4, family by family.
+
+    The panning scene's homography is a translation, far from the
+    pure-rotation branch, and its two decomposition families have equal
+    |t| in exact arithmetic: which one the minimum picks is decided by
+    rounding, in either package.  So the port's pick must be its own
+    minimum's, JAX's delta rotation must be within 1e-4 of one of the
+    port's two family rotations (on the port's grid, same draws), and JAX's
+    integrated rotation within 1e-4 of that family's integrated one."""
+    est = tp.estimators[i]
+    h = the.refined_homography(None, est.params, field_to_sparse(out.grid), tp.camera,
+                               dense=True, fit_idx=draws[i])
+    quats, tnorm = the.rotation_candidates(h, tp.camera)  # (B, 2, 4), (B, 2)
+    rows = torch.arange(B)
+    assert torch.equal(out.delta_rot[i], quats[rows, torch.argmin(tnorm, dim=-1)])
+    np.testing.assert_allclose(out.rot[i].numpy(), tq.mul(out.delta_rot[i], t_state.rot[i]).numpy(),
+                               rtol=0, atol=1e-7)
+    ref_d = np.asarray(ref.delta_rot[i])
+    fam = torch.from_numpy(np.abs(quats.numpy() - ref_d[:, None]).max(-1).argmin(-1))
+    np.testing.assert_allclose(quats[rows, fam].numpy(), ref_d, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(tq.mul(quats[rows, fam], t_state.rot[i]).numpy(),
+                               np.asarray(ref.rot[i]), rtol=0, atol=1e-4)
 
 
 def test_port_scan_frames_from_init_state():
@@ -160,22 +206,24 @@ def test_device_policy():
 
 
 @pytest.mark.cuda
-def test_graphed_consumers_match_eager_on_cuda():
+@pytest.mark.parametrize("names", ESTIMATOR_SETS, ids="+".join)
+def test_graphed_consumers_match_eager_on_cuda(names):
     """On the card the consumers replay as a CUDA graph; the replay runs
     the same kernels as the eager call on the same inputs, so the outputs
-    are equal."""
+    are equal.  A changed plain-number prop (homography's max_error) is a
+    new graph."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
-    tp = TPipe(TCam.create(W / H, 60.0), [t_est("almeida")], t_det("block_motion"),
+    tp = TPipe(TCam.create(W / H, 60.0), [t_est(n) for n in names], t_det("block_motion"),
                flow_params=interop.flow_params_from_jax(JPARAMS), emit_dense_flow=False,
                device=dev)
     frames = torch.from_numpy(_frames(2)).to(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     state, _ = tp.step_from_frames(tp.init_state(B, H, W), frames[0], gen)
     state, out = tp.step_from_frames(state, frames[1], gen)
-    draws = (tp.estimators[0].draw(gen, (B,), 90 * 150, dev),)
+    draws = tuple(e.draw(gen, (B,), 90 * 150, dev) for e in tp.estimators)
     graphed = tp._run_consumers(state, out.grid, draws, None)
     eager = tp._consume(state.est, state.rot, state.pos, out.grid, draws)
     assert len(tp._graphs) == 1
@@ -183,3 +231,11 @@ def test_graphed_consumers_match_eager_on_cuda():
         assert all(torch.equal(a, b) for a, b in zip(g, e))
     for a, b in zip(graphed[5], eager[5]):
         assert torch.equal(a, b)
+    if "homography" in names:
+        props = tp.dyn_props()
+        i = names.index("homography")
+        props["estimators"][i]["max_error"] = 0.004
+        graphed = tp._run_consumers(state, out.grid, draws, props)
+        eager = tp._consume(state.est, state.rot, state.pos, out.grid, draws, props)
+        assert len(tp._graphs) == 2
+        assert torch.equal(graphed[2][i], eager[2][i])
