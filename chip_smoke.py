@@ -24,6 +24,16 @@ Phases, each printing its own line; any failure exits non-zero:
    needs, the shift is recovered, both estimators' poses are finite, the
    detector reports the patch, and the plain path agrees (homography's
    rotation family by family: see ``homography_vs_plain``);
+   all4: ``bench.py``'s all-estimator configuration (almeida + homography
+   + multiview + libmv + block_motion) at 1080p, B=8, 8 frames of the same
+   scene; checks the flow kernels' launches per step, every pose finite on
+   every frame, libmv's carried chain set (``has``) with a finite
+   translation, one replay of the consumers' CUDA graph per step and no
+   eager step, the graph against the same calls made eagerly over two
+   consecutive steps (the carry passing through the graph), and multiview's
+   and libmv's rotations from one step on each frame's kernel-path grid
+   and plain-path grid with the same carry and draws (``EPI_STEP_DEG``,
+   ``EPI_STEP_OFF``);
 5. refine_2d: ``dense_flow`` at 1080p with ``axis_sep=False`` and with
    ``search=2``, whose big levels run the 2-D sweep; checks the launches
    and the plain path;
@@ -33,14 +43,18 @@ Phases, each printing its own line; any failure exits non-zero:
    and guard kernels); checks the launches, that the mask drops some cells
    and keeps others, the 3 px pan in the valid cells and the plain path;
 7. estimators: a synthetic camera rotation (0.3-0.6 deg per stream, 20% of
-   the vectors corrupted) on the 84x150 serving lattice, B=4, through the
-   consumers' CUDA graph and eagerly with the same draws (equal within
-   1e-6), homography against almeida per stream (within 0.05 deg), and the
-   masked path (a third of the points invalid, ``dense=False``);
-8. timing: ms/step of the serving step at B=1, 4, 8 and of the cv step for
-   both algorithms, kernel and plain paths; the consumers' graph at B=4
-   with almeida alone, homography alone and both, and its CUDA kernels per
-   replay (``torch.profiler`` on the same calls made eagerly); each kernel
+   the vectors corrupted) on the 84x150 serving lattice, B=4, built on the
+   CPU (``rotation_grid``) so that the JAX package can run the same
+   inputs, through the consumers' CUDA graph of all four estimators and
+   eagerly with the same draws (equal within 1e-6), homography, multiview
+   and libmv against almeida per stream (within 0.05 deg), and the masked
+   path (a third of the points invalid, ``dense=False``), held the same;
+8. timing: ms/step of the serving step at B=1, 4, 8, of the all-estimator
+   step at B=8 and of the cv step for both algorithms, kernel and plain
+   paths; the consumers' graph at B=4 with almeida alone, homography alone
+   and both, and at B=8 with multiview alone, libmv alone and all four,
+   and its CUDA kernels per replay (``torch.profiler`` on the same calls
+   made eagerly); each kernel
    against its plain version and, where one exists, one PyTorch library
    call (CUDA events around back-to-back calls, ``ms``), and each kernel
    and library call alone on the device (``device_ms``: a CUDA graph of N
@@ -81,12 +95,30 @@ CV_PAN_TOL = 0.25
 # contrast mask drops cells (valid must be neither none nor all of them).
 LOW_CONTRAST = 0.02
 # Rotations: the kernel and plain paths within 1e-4 (quaternion
-# components); graph and eager within 1e-6; homography and almeida on the
-# synthetic rotation within 0.05 deg.
+# components); graph and eager within 1e-6; homography, multiview and
+# libmv against almeida on the synthetic rotation within 0.05 deg, dense
+# and masked.
 ROT_PATH_TOL = 1e-4
 GRAPH_TOL = 1e-6
 EST_AGREE_DEG = 0.05
 ESTIMATORS = ("almeida", "homography")
+# bench.py's all-estimator configuration, at B=8.
+ALL4 = ("almeida", "homography", "multiview", "libmv")
+ALL4_BATCH = 8
+# Multiview's and libmv's delta rotations from one step on a frame's
+# kernel grid and on its plain grid, with the same carry and draws: 7
+# frames x 8 streams.  The grids differ in ~0.09% of the entries (argmin
+# flips on float32 near-ties).  A stream-frame counts as apart when its two
+# rotations differ by more than EPI_STEP_DEG, a twelfth of the 0.118 deg
+# pan, and EPI_STEP_OFF bounds how many may be (readings on an H100 in
+# PERF.md).  Multiview reads at most 0.002 deg apart: none may be.  This
+# pan is a pure camera rotation, degenerate for the fundamental matrix, and
+# libmv's 512 near-tied 7-point hypotheses flip their winner on those few
+# entries: 26 of 56 read 0.010-0.096 deg apart, so its bound, 3/4 of them,
+# only catches a path that moves libmv on nearly every frame; the grid
+# share and multiview hold the flow kernels.
+EPI_STEP_DEG = 0.01
+EPI_STEP_OFF = {"multiview": 0, "libmv": 42}
 
 # Roofline of one H100 SXM (published, dense, at 700 W): HBM3 bytes/s and
 # float32 operations/s outside the tensor cores.
@@ -539,28 +571,163 @@ def homography_vs_plain(torch, pipe_p, outs, outs_p, draws):
     return near_err, flips, picked_err
 
 
-def rotation_grid(torch, device, batch: int, seed: int):
-    """(batch, 84, 150, 2) serving-lattice grids of a camera rotation per
-    stream (0.3-0.6 deg about a random axis, through the port's
-    ``camera.delta``) with 20% of the vectors replaced by N(0, 0.01)
-    noise, and the rotations (batch, 4)."""
+def consumer_diff(torch, a, b) -> float:
+    """Max |a - b| over the tensors of two ``_consume`` outputs: poses,
+    deltas, carries and detection."""
+    from ofps_torch.parallel.stream import _leaves
+
+    return max((x.float() - y.float()).abs().max().item() for x, y in zip(_leaves(a), _leaves(b)))
+
+
+def run_all4(torch, device, counters):
+    """The all-estimator configuration at 1080p, B=ALL4_BATCH, over 8
+    frames: checks as the module docstring says; returns the flow kernels'
+    launches."""
+    from ofps_torch.core import quat
+
+    batch = ALL4_BATCH
+    frames = moving_frames(torch, 8, batch, H, W, device)
+    pipe = make_pipeline(device, plain=False, estimators=ALL4)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    (state, outs), counts = count_launches(
+        torch, counters, lambda: pipe.scan_frames(pipe.init_state(batch, H, W), frames, gen))
+    launches = {k: counts[k] for k in ("flow_refine", "flow_refine_small", "guard_select",
+                                       "median3x3_uv")}
+    check_per_step("all4", launches, {"flow_refine": 4, "flow_refine_small": 3, "median3x3_uv": 4})
+    steps = frames.shape[0]
+    finite = all(bool(torch.isfinite(x).all()) for o in outs
+                 for x in (*o.rot, *o.pos, *o.delta_rot, *o.delta_tr))
+    lm = ALL4.index("libmv")
+    carry = state.est[lm]
+    has_ok = bool((carry.has == 1).all()) and bool(torch.isfinite(outs[-1].delta_tr[lm]).all())
+    deg = {name: [round(math.degrees(quat.angle(o.delta_rot[i][0]).item()), 4) for o in outs]
+           for i, name in enumerate(ALL4)}
+    phase("all4", f"1080p B={batch} {steps} frames ({'+'.join(ALL4)} + block_motion): "
+          f"launches {launches}; consumers' graph replays {pipe.graph_replays} for {steps} "
+          f"steps, eager runs {pipe.eager_runs}; poses finite on every frame={finite}; libmv "
+          f"has={carry.has.tolist()} translation (stream 0, last frame) "
+          f"{outs[-1].delta_tr[lm][0].tolist()}; delta angle per frame, stream 0, deg: {deg}")
+    if pipe.graph_replays != steps or pipe.eager_runs != 0:
+        fail("all4: the consumers did not replay as one CUDA graph per step")
+    if not (finite and has_ok):
+        fail("all4: a non-finite pose, or libmv's chain not set")
+    # Graph against eager over two consecutive steps on the last grid, with
+    # the same draws and carries: the carry passes through the graph.
+    grid = outs[-1].grid
+    n = grid.shape[1] * grid.shape[2]
+    g_state = e_state = state
+    g_err = 0.0
+    for _ in range(2):
+        draws = tuple(e.draw(gen, (batch,), n, device) for e in pipe.estimators)
+        graphed = pipe._run_consumers(g_state, grid, draws, None)
+        eager = pipe._consume(e_state.est, e_state.rot, e_state.pos, grid, draws)
+        torch.cuda.synchronize()
+        g_err = max(g_err, consumer_diff(torch, graphed, eager))
+        g_state = g_state._replace(rot=graphed[0], pos=graphed[1], est=graphed[4])
+        e_state = e_state._replace(rot=eager[0], pos=eager[1], est=eager[4])
+    # The plain flow path on the same frames.
+    pipe_p = make_pipeline(device, plain=True, estimators=ALL4)
+    gen_p = torch.Generator(device=device).manual_seed(SEED)
+    _, outs_p = pipe_p.scan_frames(pipe_p.init_state(batch, H, W), frames, gen_p)
+    g_share = torch.stack([(o.grid - p.grid).abs() > 1e-5 for o, p in zip(outs, outs_p)]).float().mean().item()
+    # Multiview's and libmv's rotations from one step on each frame's
+    # kernel grid and plain grid, with the same carry and the same draws,
+    # so that neither the chain nor fresh draws compound the grids' few
+    # differing entries: the change that those entries alone make.
+    step_deg = {name: [] for name in EPI_STEP_OFF}
+    for o, p in zip(outs[1:], outs_p[1:]):
+        draws = tuple(e.draw(gen, (batch,), n, device) for e in pipe.estimators)
+        on_kernel = pipe._run_consumers(state, o.grid, draws, None)[2]
+        on_plain = pipe._run_consumers(state, p.grid, draws, None)[2]
+        for name in EPI_STEP_OFF:
+            i = ALL4.index(name)
+            step_deg[name] += [math.degrees(x) for x in
+                               quat.angle_to(on_kernel[i], on_plain[i]).tolist()]
+    off = {name: sum(d > EPI_STEP_DEG for d in v) for name, v in step_deg.items()}
+    phase("all4", f"graph vs eager over two consecutive steps max |diff| {g_err:.3e}; kernel "
+          f"vs plain path: grid entries off by >1e-5 {g_share:.2e}; one step on each "
+          f"frame's two grids (same carry, same draws), delta rotation apart per stream "
+          f"and frame, deg: { {k: [round(d, 5) for d in v] for k, v in step_deg.items()} }; "
+          f"apart by more than {EPI_STEP_DEG} deg: {off} of {len(outs) - 1} x {batch} "
+          f"(allowed {EPI_STEP_OFF})")
+    if g_err > GRAPH_TOL:
+        fail("all4: the consumers' graph and the eager calls disagree")
+    if not (g_share <= 1e-2 and all(n <= EPI_STEP_OFF[k] for k, n in off.items())):
+        fail("all4: kernel path and plain path disagree")
+    return launches
+
+
+def rotation_grid(torch, batch: int, seed: int):
+    """The "estimators" phase's fixture, built on the CPU from a CPU
+    generator so that the JAX package can run the same inputs
+    (``tests/test_torch_multiview.py``): (batch, 84, 150, 2) serving-lattice
+    grids of a camera rotation per stream (0.3-0.6 deg about a random axis,
+    through the port's ``camera.delta``) with 20% of the vectors replaced by
+    N(0, 0.01) noise, the rotations (batch, 4) and the masked path's weights
+    (batch, 84 * 150): a third of the points invalid."""
     from ofps_torch.core import quat
     from ofps_torch.core.camera import StandardCamera
     from ofps_torch.core.motion import field_to_sparse, grid_size_for
 
     gw, gh = grid_size_for(W, H)
     cam = StandardCamera.create(W / H, 60.0)
-    g = torch.Generator(device=device).manual_seed(seed)
-    pos = field_to_sparse(torch.zeros((gh, gw, 2), device=device)).pos
-    axis = torch.randn((batch, 3), generator=g, device=device)
+    g = torch.Generator().manual_seed(seed)
+    pos = field_to_sparse(torch.zeros((gh, gw, 2))).pos
+    axis = torch.randn((batch, 3), generator=g)
     axis = axis / torch.linalg.vector_norm(axis, dim=-1, keepdim=True)
-    half = torch.deg2rad(0.3 + 0.3 * torch.rand((batch, 1), generator=g, device=device)) / 2
+    half = torch.deg2rad(0.3 + 0.3 * torch.rand((batch, 1), generator=g)) / 2
     q = torch.cat([torch.cos(half), torch.sin(half) * axis], dim=-1)
     motion = torch.stack([cam.delta(pos, quat.to_matrix4(q[b])) for b in range(batch)])
-    bad = torch.rand(motion.shape[:-1], generator=g, device=device) < 0.2
-    noise = 0.01 * torch.randn(motion.shape, generator=g, device=device)
+    bad = torch.rand(motion.shape[:-1], generator=g) < 0.2
+    noise = 0.01 * torch.randn(motion.shape, generator=g)
     motion = torch.where(bad[..., None], noise, motion)
-    return motion.reshape(batch, gh, gw, 2).contiguous(), q
+    mask = (torch.rand((batch, gh * gw), generator=g) >= 1 / 3).float()
+    return motion.reshape(batch, gh, gw, 2).contiguous(), q, mask
+
+
+def run_estimators(torch, device, batch: int) -> None:
+    """The "estimators" phase: :func:`rotation_grid`'s fixture moved to the
+    card, through the consumers' CUDA graph of all four estimators and the
+    same calls made eagerly (equal within GRAPH_TOL), each estimator
+    against almeida per stream (within EST_AGREE_DEG), then the masked path
+    (``dense=False``) eagerly, held the same way."""
+    from ofps_torch.core import quat
+    from ofps_torch.core.motion import SparseFlow, field_to_sparse
+
+    pipe = make_pipeline(device, plain=False, estimators=ALL4)
+    state = pipe.init_state(batch, H, W)
+    rgrid, q_true, mask = (x.to(device) for x in rotation_grid(torch, batch, SEED + 3))
+    n_grid = rgrid.shape[1] * rgrid.shape[2]
+    gen_e = torch.Generator(device=device).manual_seed(SEED + 4)
+    draws = tuple(e.draw(gen_e, (batch,), n_grid, device) for e in pipe.estimators)
+    graphed = pipe._run_consumers(state, rgrid, draws, None)
+    eager = pipe._consume(state.est, state.rot, state.pos, rgrid, draws)
+    torch.cuda.synchronize()
+    g_err = consumer_diff(torch, graphed, eager)
+    truth = quat.conj(q_true)  # the estimators return the inverse rotation
+
+    def degrees(a, b):
+        return [round(math.degrees(x), 5) for x in quat.angle_to(a, b).tolist()]
+
+    others = ALL4[1:]
+    dense_deg = {name: degrees(graphed[2][0], graphed[2][ALL4.index(name)]) for name in others}
+    err_deg = {name: degrees(graphed[2][i], truth) for i, name in enumerate(ALL4)}
+    sparse = field_to_sparse(rgrid)
+    masked = SparseFlow(sparse.pos, sparse.motion, mask)
+    masked_rot = [e.estimate(st, masked, pipe.camera, gen_e, dense=False)[0]
+                  for e, st in zip(pipe.estimators, state.est)]
+    masked_deg = {name: degrees(masked_rot[0], masked_rot[ALL4.index(name)]) for name in others}
+    finite = all(bool(torch.isfinite(r).all()) for r in (*graphed[2], *eager[2], *masked_rot))
+    phase("estimators", f"synthetic rotation B={batch} on the {tuple(rgrid.shape[1:3])} "
+          f"lattice ({[round(math.degrees(x), 4) for x in quat.angle(q_true).tolist()]} "
+          f"deg, 20% corrupted): graph vs eager max |diff| {g_err:.3e} ({'+'.join(ALL4)} + "
+          f"block_motion); against almeida per stream {dense_deg} deg; error vs the true "
+          f"rotation {err_deg} deg; masked ({int(mask.sum().item())} of {batch * n_grid} "
+          f"points valid, dense=False) against almeida {masked_deg} deg; finite={finite}")
+    if not (g_err <= GRAPH_TOL and finite):
+        fail("the consumers' graph and eager calls disagree, or a rotation is not finite")
+    if not all(max(v) <= EST_AGREE_DEG for v in (*dense_deg.values(), *masked_deg.values())):
+        fail("an estimator disagrees with almeida on the synthetic rotation")
 
 
 def consumer_kernels(torch, pipe, state, grid, draws):
@@ -708,6 +875,8 @@ def main() -> None:
     if not (g_share <= 1e-2 and r_err <= ROT_PATH_TOL and h_near <= ROT_PATH_TOL):
         fail("kernel path and plain path disagree")
     del pipe, pipe_p, state, outs, outs_p, diffs
+    launches_by_path["all4"] = run_all4(torch, device, counters)
+    torch.cuda.empty_cache()
 
     # 5. the big levels' 2-D mode through dense_flow (B=1, cold start).
     from ofps_torch.ops.flow_pyramid import (
@@ -791,48 +960,8 @@ def main() -> None:
         del outs, outs_p
 
     # 7. the estimators on a synthetic camera rotation (B=4, serving
-    # lattice): the consumers' CUDA graph against the same calls made
-    # eagerly, homography against almeida, then the masked path.
-    from ofps_torch.core import quat
-    from ofps_torch.core.motion import SparseFlow, field_to_sparse
-
-    pipe = make_pipeline(device, plain=False)
-    state = pipe.init_state(batch, H, W)
-    rgrid, q_true = rotation_grid(torch, device, batch, SEED + 3)
-    n_grid = rgrid.shape[1] * rgrid.shape[2]
-    gen_e = torch.Generator(device=device).manual_seed(SEED + 4)
-    draws = tuple(e.draw(gen_e, (batch,), n_grid, device) for e in pipe.estimators)
-    graphed = pipe._run_consumers(state, rgrid, draws, None)
-    eager = pipe._consume(state.est, state.rot, state.pos, rgrid, draws)
-    torch.cuda.synchronize()
-    g_err = max((a - b).abs().max().item()
-                for g, e in zip(graphed[:4], eager[:4]) for a, b in zip(g, e))
-    det_same = all(bool(torch.equal(a, b)) for a, b in zip(graphed[5], eager[5]))
-    truth = quat.conj(q_true)  # the estimators return the inverse rotation
-
-    def degrees(a, b):
-        return [round(math.degrees(x), 5) for x in quat.angle_to(a, b).tolist()]
-
-    dense_deg = degrees(graphed[2][0], graphed[2][1])
-    err_deg = {name: degrees(graphed[2][i], truth) for i, name in enumerate(ESTIMATORS)}
-    mask = (torch.rand((batch, n_grid), generator=gen_e, device=device) >= 1 / 3).float()
-    sparse = field_to_sparse(rgrid)
-    masked = SparseFlow(sparse.pos, sparse.motion, mask)
-    masked_rot = [e.estimate((), masked, pipe.camera, gen_e, dense=False)[0]
-                  for e in pipe.estimators]
-    masked_deg = degrees(*masked_rot)
-    finite = all(bool(torch.isfinite(r).all()) for r in (*graphed[2], *eager[2], *masked_rot))
-    phase("estimators", f"synthetic rotation B={batch} on the {tuple(rgrid.shape[1:3])} "
-          f"lattice ({[round(math.degrees(x), 4) for x in quat.angle(q_true).tolist()]} "
-          f"deg, 20% corrupted): graph vs eager max |diff| {g_err:.3e}, detection "
-          f"equal={det_same}; homography vs almeida per stream {dense_deg} deg; error "
-          f"vs the true rotation {err_deg} deg; masked ({int(mask.sum().item())} of "
-          f"{batch * n_grid} points valid, dense=False) homography vs almeida "
-          f"{masked_deg} deg; finite={finite}")
-    if not (g_err <= GRAPH_TOL and det_same and finite):
-        fail("the consumers' graph and eager calls disagree, or a rotation is not finite")
-    if not max(dense_deg + masked_deg) <= EST_AGREE_DEG:
-        fail("homography and almeida disagree on the synthetic rotation")
+    # lattice).
+    run_estimators(torch, device, batch)
 
     # 8. timing
     from ofps_torch.decoders.cv import CvFlowStep
@@ -840,8 +969,8 @@ def main() -> None:
 
     step_ms = {}
     for plain in (False, True):
-        for b in (1, 4, 8):
-            pipe = make_pipeline(device, plain)
+        for names, b in ((ESTIMATORS, 1), (ESTIMATORS, 4), (ESTIMATORS, 8), (ALL4, ALL4_BATCH)):
+            pipe = make_pipeline(device, plain, names)
             fr = moving_frames(torch, 2, b, H, W, device)
             st = pipe.init_state(b, H, W)
             st, _ = pipe.step_from_frames(st, fr[0], gen)
@@ -865,36 +994,40 @@ def main() -> None:
             iters = 5 if plain else 10
             ms = time_ms(torch, step, iters)
             f_ms, c_ms = time_ms(torch, flow, iters), time_ms(torch, consumers, iters)
-            step_ms[("plain" if plain else "kernel", b)] = ms
-            phase("timing", f"step {'plain ' if plain else 'kernel'} B={b} "
+            config = "+".join(names)
+            step_ms[("plain" if plain else "kernel", b, config)] = ms
+            phase("timing", f"step {'plain ' if plain else 'kernel'} B={b} {config} "
                   f"{ms:.3f} ms/step ({ms / b:.3f} ms/frame): dense flow "
                   f"{f_ms:.3f} ms, estimator+detector {c_ms:.3f} ms | {smi}")
             del pipe, st, fr, out
-    # The consumers' graph at B=4 with each estimator alone and both, on
-    # the serving step's grid of the 3 px scene, and its kernels per replay.
-    fr = moving_frames(torch, 2, batch, H, W, device)
+    # The consumers' graph with each estimator alone and together, on the
+    # serving step's grid of the 3 px scene, and its kernels per replay: at
+    # B=4 the serving configuration's, at B=8 the all-estimator one's.
     consumers_ms, consumer_kernel_counts = {}, {}
-    grid4 = None
-    for names in (("almeida",), ("homography",), ESTIMATORS):
-        pipe = make_pipeline(device, False, names)
-        st = pipe.init_state(batch, H, W)
-        if grid4 is None:
-            st1, _ = pipe.step_from_frames(st, fr[0], gen)
-            grid4 = pipe.step_from_frames(st1, fr[1], gen)[1].grid
-        d = tuple(e.draw(gen, (batch,), n_grid, device) for e in pipe.estimators)
-        key = "+".join(names)
-        consumers_ms[key] = time_ms(
-            torch, lambda p=pipe, s=st, d=d: p._run_consumers(s, grid4, d, None), 10)
-        kernels, kernel_ms = consumer_kernels(torch, pipe, st, grid4, d)
-        consumer_kernel_counts[key] = kernels
-        phase("timing", f"consumers' graph B={batch}, {key} + block_motion: "
-              f"{consumers_ms[key]:.3f} ms per replay; "
-              + (f"{kernels} CUDA kernels, {kernel_ms:.3f} ms of kernel time in the same "
-                 f"calls made eagerly (torch.profiler)" if kernels else
-                 "kernels per replay not measured (the profiler saw no CUDA events)")
-              + f" | {smi}")
-        del pipe, st
-    del fr, grid4
+    for b, sets in ((batch, (("almeida",), ("homography",), ESTIMATORS)),
+                    (ALL4_BATCH, (("multiview",), ("libmv",), ALL4))):
+        fr = moving_frames(torch, 2, b, H, W, device)
+        grid_b = None
+        for names in sets:
+            pipe = make_pipeline(device, False, names)
+            st = pipe.init_state(b, H, W)
+            if grid_b is None:
+                st1, _ = pipe.step_from_frames(st, fr[0], gen)
+                grid_b = pipe.step_from_frames(st1, fr[1], gen)[1].grid
+            d = tuple(e.draw(gen, (b,), n_grid, device) for e in pipe.estimators)
+            key = f"{'+'.join(names)}_B{b}"
+            consumers_ms[key] = time_ms(
+                torch, lambda p=pipe, s=st, d=d, g=grid_b: p._run_consumers(s, g, d, None), 10)
+            kernels, kernel_ms = consumer_kernels(torch, pipe, st, grid_b, d)
+            consumer_kernel_counts[key] = {"kernels": kernels, "kernel_ms": kernel_ms}
+            phase("timing", f"consumers' graph B={b}, {'+'.join(names)} + block_motion: "
+                  f"{consumers_ms[key]:.3f} ms per replay; "
+                  + (f"{kernels} CUDA kernels, {kernel_ms:.3f} ms of kernel time in the same "
+                     f"calls made eagerly (torch.profiler)" if kernels else
+                     "kernels per replay not measured (the profiler saw no CUDA events)")
+                  + f" | {smi}")
+            del pipe, st
+        del fr, grid_b
     cv_ms = {}
     prev_flow = torch.full((H, W, 2), SHIFT, dtype=torch.float32, device=device)
     for use_rlof in (False, True):
@@ -977,10 +1110,10 @@ def main() -> None:
                if "fused_device_ms" in results[name] else {}),
         }
         for name in REPLACES
-    ], "step_ms": {f"{p}_B{b}": v for (p, b), v in step_ms.items()},
-        "step_config": "+".join(ESTIMATORS) + "+block_motion",
-        "consumers_ms": {f"{k}_B{batch}": v for k, v in consumers_ms.items()},
-        "consumer_kernels": {f"{k}_B{batch}": v for k, v in consumer_kernel_counts.items()},
+    ], "step_ms": {f"{p}_B{b}_{c}": v for (p, b, c), v in step_ms.items()},
+        "step_config": "+block_motion, ".join(["+".join(ESTIMATORS), "+".join(ALL4)]) + "+block_motion",
+        "consumers_ms": consumers_ms,
+        "consumer_kernels": consumer_kernel_counts,
         "cv_step_ms": cv_ms, "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

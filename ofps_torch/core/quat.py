@@ -43,6 +43,13 @@ def inverse(q: torch.Tensor) -> torch.Tensor:
     return conj(q)
 
 
+def from_axis_angle(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
+    n = torch.sqrt(torch.sum(axis * axis, dim=-1, keepdim=True))
+    axis = axis / torch.clamp(n, min=1e-30)
+    half = torch.as_tensor(angle)[..., None] * 0.5
+    return torch.cat([torch.cos(half), axis * torch.sin(half)], dim=-1)
+
+
 def from_euler(roll, pitch, yaw) -> torch.Tensor:
     """nalgebra ``from_euler_angles``: ``Rz(yaw) * Ry(pitch) * Rx(roll)``."""
     roll, pitch, yaw = (
@@ -151,3 +158,14 @@ def angle(q: torch.Tensor) -> torch.Tensor:
 def angle_to(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Angle between two rotations (nalgebra ``angle_to``)."""
     return angle(mul(inverse(a), b))
+
+
+def axis_angle(q: torch.Tensor):
+    """(axis, angle); the axis is +x for near-identity rotations and is
+    negated when w < 0 (nalgebra keeps the represented angle positive)."""
+    v = q[..., 1:]
+    n = torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
+    sign = torch.where(q[..., :1] < 0, -1.0, 1.0)
+    x_axis = (torch.arange(3, device=q.device) == 0).to(q.dtype)
+    axis = torch.where(n > 1e-12, sign * v / torch.clamp(n, min=1e-30), x_axis)
+    return axis, angle(q)

@@ -13,15 +13,25 @@ that ``estimate`` itself is a fixed sequence of device operations.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import importlib
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from ofps_torch.core import quat
+from ofps_torch.ops.solve import inv3x3
 
 _REGISTRY: Dict[str, Callable[..., "EstimatorInstance"]] = {}
-_BUILTIN = ("almeida", "homography")
+_BUILTIN = ("almeida", "homography", "multiview", "libmv")
+
+
+@functools.lru_cache(maxsize=16)
+def camera_intrinsics(camera, device: str):
+    """(K, K^-1) of ``camera`` on ``device``, built once (outside any CUDA
+    graph: the capture's eager warm-up call fills the cache)."""
+    k = camera.intrinsics().to(device)
+    return k, inv3x3(k)
 
 
 @dataclasses.dataclass
@@ -36,8 +46,9 @@ class EstimatorInstance:
     dyn_defaults: Callable[[], dict] = dataclasses.field(
         default_factory=lambda: (lambda: {})
     )
-    # (generator, lead_shape, n_points, device) -> fit_idx for ``estimate``.
-    draw: Optional[Callable[..., torch.Tensor]] = None
+    # (generator, lead_shape, n_points, device) -> fit_idx for ``estimate``:
+    # a tensor, or a tuple of tensors.
+    draw: Optional[Callable[..., Any]] = None
 
     def motion_step(self, state, flow, camera, rot, pos, generator=None,
                     props=None, dense=False):
@@ -57,9 +68,18 @@ def register(name: str):
     return deco
 
 
-def create_estimator(name: str, **kwargs) -> EstimatorInstance:
+def _load_builtin_estimators() -> None:
     for mod in _BUILTIN:
         importlib.import_module(f"ofps_torch.estimators.{mod}")
+
+
+def available_estimators():
+    _load_builtin_estimators()
+    return sorted(_REGISTRY)
+
+
+def create_estimator(name: str, **kwargs) -> EstimatorInstance:
+    _load_builtin_estimators()
     if name not in _REGISTRY:
         raise KeyError(f"unknown estimator {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name](**kwargs)

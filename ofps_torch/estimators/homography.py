@@ -12,25 +12,22 @@ all hypotheses run at once on leading dims.
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple, Optional
 
 import torch
 
 from ofps_torch.core import quat
 from ofps_torch.core.motion import SparseFlow
-from ofps_torch.estimators.base import EstimatorInstance, register
+from ofps_torch.estimators.base import EstimatorInstance, camera_intrinsics, register
 from ofps_torch.estimators.convention import remap_solver_rotation
-from ofps_torch.ops.epipolar import homogeneous
+from ofps_torch.ops.epipolar import homogeneous, transform_points
 from ofps_torch.ops.homography import (
     decompose_homography,
     dlt_homography,
     gn_refine_homography,
     homography_transfer_error,
-    transform_points,
 )
 from ofps_torch.ops.robust import draw_dense, ransac_budget, robust_fit
-from ofps_torch.ops.solve import inv3x3
 
 
 class HomographyParams(NamedTuple):
@@ -54,13 +51,6 @@ def hypothesis_count(params: HomographyParams) -> int:
         params.desired_confidence, params.outlier_proba, 4,
         min(params.num_hypotheses, params.max_iters),
     )
-
-
-@functools.lru_cache(maxsize=16)
-def _intrinsics(camera, device: str):
-    """(K, K^-1) on ``device``, built once (outside any CUDA graph)."""
-    k = camera.intrinsics().to(device)
-    return k, inv3x3(k)
 
 
 def _minimal(x1s, x2s, ws):
@@ -102,7 +92,7 @@ def refined_homography(
 
     # Sign disambiguation before decomposition: x2n . (Hn x1n) > 0 on the
     # consensus set (positive depth), with xn = K^-1 x.
-    kinv = _intrinsics(camera, str(p1.device))[1]
+    kinv = camera_intrinsics(camera, str(p1.device))[1]
     a = transform_points(homogeneous(p1), torch.matmul(kinv, h))
     b = transform_points(homogeneous(p2), kinv)
     sign = torch.sign(torch.sum(torch.sum(a * b, dim=-1) * res.inliers, dim=-1))
@@ -118,7 +108,7 @@ def rotation_candidates(h: torch.Tensor, camera):
     tie).  In exact arithmetic both norms equal s1 - s3 (n is a unit
     vector in both families), so outside the pure-rotation branch that
     choice is made by rounding, here as in the JAX package."""
-    rs, ts, _ = decompose_homography(h, _intrinsics(camera, str(h.device))[0])
+    rs, ts, _ = decompose_homography(h, camera_intrinsics(camera, str(h.device))[0])
     # x2 ~ (R + t n^T) x1 lands one inverse away from the reference's
     # OpenCV output: the calibrated remap is the (w, -x, -z, y) swap.
     return remap_solver_rotation(quat.from_matrix3(rs)), torch.sum(ts * ts, dim=-1)

@@ -16,7 +16,13 @@ from __future__ import annotations
 
 import torch
 
-from ofps_torch.ops.epipolar import hartley_normalization, homogeneous
+from ofps_torch.ops.epipolar import (
+    _cross,
+    gram,
+    hartley_normalization,
+    homogeneous,
+    transform_points,
+)
 from ofps_torch.ops.solve import (
     _eye,
     det3,
@@ -36,27 +42,6 @@ def _matvec(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.matmul(m, v[..., None])[..., 0]
 
 
-# Products whose inner dimension is tiny (3) or whose reduction runs over
-# the points (25,200 rows) are written as a broadcast multiply and a sum:
-# cuBLAS takes its worst tiles for both shapes (on an H100 its ten
-# point-reduction products took 2.7 of the estimator's 6.2 ms of kernel
-# time at B=4; PERF.md).
-
-
-def _gram(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """aᵀ b over the second-to-last (point) dim: (..., N, I), (..., N, J)
-    -> (..., I, J), summed over N."""
-    return torch.sum(a[..., :, :, None] * b[..., :, None, :], dim=-3)
-
-
-def transform_points(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
-    """Rows of ``x`` (..., N, 3) through ``m`` (..., 3, 3): x mᵀ, with the
-    leading dims broadcast; the three products summed in order."""
-    m = m[..., None, :, :]
-    return (x[..., :, None, 0] * m[..., 0] + x[..., :, None, 1] * m[..., 1]
-            + x[..., :, None, 2] * m[..., 2])
-
-
 def dlt_homography(x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Weighted normalized DLT: H with x2 ~ H x1.  (..., N, 2), (..., N, 2),
     (..., N) -> (..., 3, 3), scaled so h22 = 1 where |h22| > 1e-12."""
@@ -71,7 +56,7 @@ def dlt_homography(x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor) -> torch
     rows_a = torch.stack([-u1, -v1, -o, z, z, z, u2 * u1, u2 * v1, u2], dim=-1)
     rows_b = torch.stack([z, z, z, -u1, -v1, -o, v2 * u1, v2 * v1, v2], dim=-1)
     rows = torch.cat([rows_a * w[..., None], rows_b * w[..., None]], dim=-2)
-    ata = _gram(rows, rows)
+    ata = gram(rows, rows)
     vecs = smallest_eigvecs_inverse_iteration(ata, 1)
     h = vecs[..., :, 0].reshape(vecs.shape[:-2] + (3, 3))
     h = torch.matmul(torch.matmul(inv3x3(t2), h), t1)
@@ -125,11 +110,11 @@ def gn_refine_homography(
         j1 = torch.cat([zero3, xz, -p[..., 1:2] * x1h[..., :2] * (invz**2)[..., None]], dim=-1)
         jw = torch.cat([j0 * w[..., None], j1 * w[..., None]], dim=-2)  # (..., 2N, 8)
         rr = torch.cat([r[..., 0], r[..., 1]], dim=-1)
-        jtj = _gram(jw, jw)
+        jtj = gram(jw, jw)
         # Levenberg damping keeps near-singular systems stable.
         tr = torch.diagonal(jtj, dim1=-2, dim2=-1).sum(-1)
         jtj = jtj + (1e-8 * tr / 8.0)[..., None, None] * eye8
-        jtr = _gram(jw, rr[..., None])[..., 0]
+        jtr = gram(jw, rr[..., None])[..., 0]
         delta = gauss_solve(jtj, -jtr[..., None])[..., 0]
         upd = torch.cat([delta, torch.zeros_like(delta[..., :1])], dim=-1)
         cand = hm + upd.reshape(upd.shape[:-1] + (3, 3))
@@ -139,11 +124,6 @@ def gn_refine_homography(
     for _ in range(iters):
         h = step(h)
     return h
-
-
-def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    a, b = torch.broadcast_tensors(a, b)
-    return torch.linalg.cross(a, b, dim=-1)
 
 
 def decompose_homography(h: torch.Tensor, k: torch.Tensor):

@@ -118,9 +118,8 @@ def sample_indices(
 
     ``w`` None: (rows, k) draws from [0, n) of an all-valid point set,
     truncating ``u * n`` as the JAX package's ``dense=True`` sampler does.
-    ``w`` (..., N): (..., rows, k) draws of valid points (w > 0.5): the r-th
-    valid point, r uniform over the m valid ones, found as
-    ``searchsorted(cumsum(valid), r + 1)`` (the masked sampler).
+    ``w`` (..., N): (..., rows, k) draws of valid points (w > 0.5), mapped
+    from uniforms by :func:`indices_from_uniform` (the masked sampler).
     Independent draws may repeat an index within a row (a repeated point
     is a degenerate minimal fit that loses the vote).  ``generator`` must
     live on the points' device (None: torch's default generator).
@@ -128,12 +127,27 @@ def sample_indices(
     if w is None:
         u = torch.rand((rows, k), generator=generator, device=device)
         return torch.clamp((u * n).to(torch.int64), max=n - 1)
+    u = torch.rand(w.shape[:-1] + (rows, k), generator=generator, device=w.device)
+    return indices_from_uniform(u, w)
+
+
+def indices_from_uniform(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Valid point indices (..., rows, k) of uniforms ``u`` (..., rows, k)
+    over the valid points (w > 0.5) of ``w`` (..., N): the r-th valid point,
+    r = floor(u * m) of the m valid ones, found as ``searchsorted(cumsum(
+    valid), r + 1)`` (the JAX package's masked sampler).  With no valid
+    point the index clamps to N - 1, as a JAX gather clamps it.  A fixed
+    sequence of device operations, so the uniforms can be drawn ahead and
+    the mapping captured in a CUDA graph with a mask that depends on the
+    data."""
     valid = (w > 0.5).to(torch.int64)
     m = torch.clamp(valid.sum(-1, keepdim=True), min=1)  # (..., 1)
     c = torch.cumsum(valid, dim=-1)
-    u = torch.rand(w.shape[:-1] + (rows * k,), generator=generator, device=w.device)
+    shape = u.shape
+    u = u.reshape(shape[:-2] + (-1,))
     r = torch.minimum((u * m).to(torch.int64), m - 1)
-    return torch.searchsorted(c, r + 1).reshape(w.shape[:-1] + (rows, k))
+    idx = torch.clamp(torch.searchsorted(c, r + 1), max=w.shape[-1] - 1)
+    return idx.reshape(shape)
 
 
 def draw_dense(generator, lead, n: int, rows: int, k: int, device) -> torch.Tensor:
@@ -243,7 +257,11 @@ def robust_fit(
     )  # (*lead, H, M, 3, 3), (*lead, H, M)
     hm = models.shape[-4] * models.shape[-3]
     models = models.reshape(lead + (hm, 3, 3))
-    valid = valid.reshape(lead + (hm,))
+    # A non-finite candidate is not valid: its NaN median would make the
+    # LMedS statistic, and with it the adaptive cut, NaN (no inliers at
+    # all).  The JAX package lacks this gate; its 7-point cubic gives NaN
+    # roots where the leading coefficient rounds to 0.
+    valid = valid.reshape(lead + (hm,)) & torch.isfinite(models).flatten(-2).all(-1)
 
     if eval_cap and eval_cap < n:
         if dense:

@@ -3,12 +3,14 @@
 
     frames (B, H, W) -> dense flow (pyramid of hand kernels) -> grid sums
       -> (B, gh, gw, 2) normalized grid -> SparseFlow (B, G, 2)
-         |-> every estimator (dense=True RANSAC: almeida, homography)
-         |     -> pose integration
+         |-> every estimator (dense=True RANSAC: almeida, homography,
+         |     multiview, libmv) -> pose integration
          '-> detector (static-lattice detect_field)
 
 Rotation/position state, estimator carry and the dense-flow warm start all
-travel in :class:`StreamState`; B streams form the leading batch dim.
+travel in :class:`StreamState`; B streams form the leading batch dim.  On
+CUDA the estimators and the detector replay as one CUDA graph, the
+estimators' carries (libmv's :class:`PrevMotion`) passing in and out of it.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ class StreamState(NamedTuple):
     has_prev: torch.Tensor  # (B,) 1.0 once a previous frame exists
     rot: Tuple[torch.Tensor, ...]  # per estimator: (B, 4) integrated rotation
     pos: Tuple[torch.Tensor, ...]  # per estimator: (B, 3) integrated position
-    est: Tuple[Any, ...]  # per estimator: carried state
+    est: Tuple[Any, ...]  # per estimator: carried state, batched over B
 
 
 class StreamOutputs(NamedTuple):
@@ -90,6 +92,9 @@ class StreamPipeline:
         self.plain = plain
         self._grid_plans: dict = {}
         self._graphs: dict = {}
+        # Consumer runs by kind: CUDA-graph replays and eager calls.
+        self.graph_replays = 0
+        self.eager_runs = 0
 
     def _grid_plan(self, h: int, w: int) -> Optional[GridPlan]:
         """Static in-kernel densify plan of the finest level, or None when
@@ -123,7 +128,7 @@ class StreamPipeline:
             has_prev=torch.zeros((batch,), dtype=torch.float32, device=dev),
             rot=tuple(quat.identity(device=dev).expand(batch, 4) for _ in range(e)),
             pos=tuple(torch.zeros((batch, 3), device=dev) for _ in range(e)),
-            est=tuple(est.init() for est in self.estimators),
+            est=tuple(_broadcast_state(est.init(), batch, dev) for est in self.estimators),
         )
 
     def dyn_props(self):
@@ -163,32 +168,33 @@ class StreamPipeline:
         return tuple(rots), tuple(poss), tuple(dr), tuple(dt), tuple(est_out), detection
 
     def _run_consumers(self, state: StreamState, grid, draws, props):
-        """:meth:`_consume`, replayed as a CUDA graph where it can be.
+        """:meth:`_consume`, replayed as a CUDA graph on CUDA.
 
-        Eagerly the estimators' LSQ loops are ~9k small launches a step,
-        so the step is bound by the host launching them; a graph replays
-        the same kernels in one launch.  Captured per (shapes, props) on
-        CUDA when every estimator draws ahead (``draw``), carries no state
-        and the props are plain numbers; otherwise run eagerly.
+        Eagerly the estimators' LSQ loops and RANSAC stages are 20-31k small
+        launches a step, so the step is bound by the host launching them; a
+        graph replays the same kernels in one launch.  The graph is
+        captured per (input shapes, props): the grid, the integrated poses,
+        the draws (a tensor or a tuple of tensors per estimator) and the
+        estimators' carries are its static inputs, and the new carries come
+        out with the other outputs.  It runs eagerly on the CPU, and where a
+        prop is not a plain number (a graph could not see it change).
         """
         key = _props_key(props)
-        if (
-            self.device.type != "cuda" or key is None
-            or any(st != () for st in state.est)
-            or any(d is None for d in draws)
-        ):
+        if self.device.type != "cuda" or key is None:
+            self.eager_runs += 1
             return self._consume(state.est, state.rot, state.pos, grid, draws, props)
-        n_est = len(self.estimators)
-        inputs = (grid,) + tuple(state.rot) + tuple(state.pos) + tuple(draws)
-        shapes = tuple(tuple(x.shape) for x in inputs)
-        if (shapes, key) not in self._graphs:
+        tree = (tuple(state.rot), tuple(state.pos), tuple(draws), tuple(state.est))
+        inputs = (grid,) + tuple(_leaves(tree))
+        gkey = (tuple(tuple(x.shape) for x in inputs), key)
+        if gkey not in self._graphs:
 
             def fn(*xs):
-                rot, pos = xs[1 : 1 + n_est], xs[1 + n_est : 1 + 2 * n_est]
-                return self._consume(state.est, rot, pos, xs[0], xs[1 + 2 * n_est :], props)
+                rot, pos, d, est = _rebuild(tree, iter(xs[1:]))
+                return self._consume(est, rot, pos, xs[0], d, props)
 
-            self._graphs[(shapes, key)] = _CapturedCall(fn, inputs)
-        return self._graphs[(shapes, key)](inputs)
+            self._graphs[gkey] = _CapturedCall(fn, inputs)
+        self.graph_replays += 1
+        return self._graphs[gkey](inputs)
 
     # -- steps ---------------------------------------------------------------
 
@@ -202,8 +208,9 @@ class StreamPipeline:
         field, hence identity pose deltas.  ``draws``: optional per-estimator
         random inputs in place of drawing them from ``generator``, in
         estimator order (RANSAC point indices: (B, 200, 3) for almeida,
-        (B, 91, 4) for homography at their defaults); parity tests inject
-        JAX's.
+        (B, 91, 4) for homography, (B, 218, 5) for multiview, and for libmv
+        (B, 512, 7) indices with (B, 512, 7) uniforms for its chained
+        field, at their defaults); parity tests inject JAX's.
         """
         if gray.device.type != self.device.type:
             raise ValueError(f"frames on {gray.device}, pipeline on {self.device}")
@@ -281,12 +288,32 @@ def _props_key(props):
     return tuple(items)
 
 
-def _clone(x):
+def _broadcast_state(x, batch: int, device):
+    """An estimator's unbatched ``init()`` carry tiled to B streams."""
+    return _rebuild(x, (t.to(device).expand((batch,) + t.shape).clone() for t in _leaves(x)))
+
+
+def _leaves(x) -> List[torch.Tensor]:
+    """The tensors of a nest of tuples / named tuples (None has none)."""
     if x is None:
-        return None
+        return []
     if isinstance(x, torch.Tensor):
-        return x.clone()
-    return type(x)(*map(_clone, x)) if hasattr(x, "_fields") else tuple(map(_clone, x))
+        return [x]
+    return [leaf for v in x for leaf in _leaves(v)]
+
+
+def _rebuild(template, leaves):
+    """``template``'s nest with its tensors taken in order from ``leaves``."""
+    if template is None:
+        return None
+    if isinstance(template, torch.Tensor):
+        return next(leaves)
+    fields = [_rebuild(v, leaves) for v in template]
+    return type(template)(*fields) if hasattr(template, "_fields") else tuple(fields)
+
+
+def _clone(x):
+    return _rebuild(x, (t.clone() for t in _leaves(x)))
 
 
 class _CapturedCall:

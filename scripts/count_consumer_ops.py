@@ -5,11 +5,12 @@
 
 On the CUDA graph of the serving step's consumers nearly every dispatched
 operation is one kernel launch, so this count (views excluded) is the
-launch budget of an estimator, without a card.  For almeida and
-homography at the 1080p serving grid (84x150, dense draws), it prints the
-total and, for homography, the split by the innermost of its stages
-(``ops/solve``, ``ops/epipolar``, ``ops/robust`` helpers; the rest is the
-stage code of ``robust_fit``, ``ops/homography`` and the estimator).
+launch budget of an estimator, without a card.  For each built-in
+estimator at the 1080p serving grid (84x150, dense draws), it
+prints the total and, but for almeida, the split by the innermost of its
+stages (``ops/solve``, ``ops/epipolar``, ``ops/five_point``, ``ops/robust``
+and libmv helpers; the rest is the stage code of ``robust_fit``, the
+estimator and its other ops).  libmv runs from the empty carry.
 """
 
 from __future__ import annotations
@@ -28,8 +29,12 @@ VIEWS = {
     "detach", "lift_fresh", "_reshape_alias",
 }
 STAGES = (
-    "gauss_solve", "eigh3x3", "svd3x3", "inv3x3", "smallest_eigvecs_inverse_iteration",
-    "hartley_normalization", "masked_median",
+    "gauss_solve", "gauss_solve_pivoted", "eigh3x3", "svd3x3", "inv3x3",
+    "smallest_eigvecs_inverse_iteration", "hartley_normalization", "masked_median",
+    "_trig_eval", "_tangent_seeds", "_reduced_bpoly", "five_point_essential",
+    "seven_point_fundamental", "eight_point_fundamental", "refine_pose_sampson",
+    "rotation_only_fallback", "recover_pose_from_essential", "sampson_error",
+    "rasterize_prev", "find_nearest", "robust_fit",
 )
 
 
@@ -43,7 +48,8 @@ def main() -> None:
 
     from ofps_torch.core.camera import StandardCamera
     from ofps_torch.core.motion import field_to_sparse
-    from ofps_torch.estimators.base import create_estimator
+    from ofps_torch.estimators.base import available_estimators, create_estimator
+    from ofps_torch.parallel.stream import _broadcast_state
 
     class Count(TorchDispatchMode):
         def __init__(self):
@@ -65,12 +71,13 @@ def main() -> None:
     gen = torch.Generator().manual_seed(0)
     grid = torch.randn((args.batch, 84, 150, 2), generator=gen) * 1e-3
     flow = field_to_sparse(grid)
-    for name in ("almeida", "homography"):
+    for name in available_estimators():
         est = create_estimator(name)
         draws = est.draw(gen, (args.batch,), 84 * 150, "cpu")
-        est.estimate((), flow, cam, dense=True, fit_idx=draws)  # fill the caches
+        carry = _broadcast_state(est.init(), args.batch, "cpu")
+        est.estimate(carry, flow, cam, dense=True, fit_idx=draws)  # fill the caches
         with Count() as count:
-            est.estimate((), flow, cam, dense=True, fit_idx=draws)
+            est.estimate(carry, flow, cam, dense=True, fit_idx=draws)
         split = "" if name == "almeida" else f": {dict(count.by_stage.most_common())}"
         print(f"{name} B={args.batch}: {sum(count.by_stage.values())} operations{split}",
               flush=True)

@@ -2,10 +2,12 @@
 """Profile the serving step's consumers (estimators + detector) on one CUDA
 GPU with ``torch.profiler``.
 
-    python3 scripts/profile_consumers.py [--batch 4] [--top 12]
+    python3 scripts/profile_consumers.py [--batch 4] [--top 12] [--sets serving|all4]
 
-For almeida alone, homography alone and both (each with block_motion), on
-the grid that ``chip_smoke.py``'s 3 px scene gives the 1080p serving step:
+For ``--sets serving``: almeida alone, homography alone and both; for
+``--sets all4``: multiview alone, libmv alone and all four (each with
+block_motion), on the grid that ``chip_smoke.py``'s 3 px scene gives the
+1080p serving step:
 the consumers' CUDA-graph replay time (CUDA events), and for the same
 calls made eagerly the CUDA kernels, their summed device time, the
 kernels that take the most of it and the PyTorch operations whose
@@ -27,6 +29,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=4, help="streams")
     ap.add_argument("--top", type=int, default=12, help="kernels listed by device time")
+    ap.add_argument("--sets", choices=("serving", "all4"), default="serving",
+                    help="estimator sets: the serving step's, or the all-estimator one's")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     import torch
@@ -46,7 +50,9 @@ def main() -> None:
     frames = cs.moving_frames(torch, 2, b, cs.H, cs.W, dev)
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
     grid = None
-    for names in (("almeida",), ("homography",), cs.ESTIMATORS):
+    sets = ((("almeida",), ("homography",), cs.ESTIMATORS) if args.sets == "serving"
+            else (("multiview",), ("libmv",), cs.ALL4))
+    for names in sets:
         pipe = cs.make_pipeline(dev, False, names)
         st = pipe.init_state(b, cs.H, cs.W)
         if grid is None:

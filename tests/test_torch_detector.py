@@ -95,3 +95,28 @@ def test_components_match(seed):
         j_mask, j_area = j_largest(jnp.asarray(active[b]))
         np.testing.assert_array_equal(t_mask[b].numpy(), np.asarray(j_mask))
         assert int(t_area[b]) == int(j_area)
+
+
+@pytest.mark.parametrize("density", [0.5, 0.8])
+def test_components_match_above_closure_size(density):
+    """70x70 grids (4,900 cells, past the closure's 4,096): the
+    hook + pointer-jump branch, as ``tests/test_detector.py`` checks JAX's
+    (min_size 0.01 at subdivide 7 gives this grid).  Labels, the largest
+    component and its area exactly equal, batched over three grids, one
+    of them a boustrophedon snake (the longest diameter a grid holds).
+    The static 43 rounds do not join the whole 70x70 snake in either
+    package (its diameter is ~2,500 cells): the labels still agree."""
+    rng = np.random.default_rng(7)
+    active = rng.random((2, 70, 70)) < density
+    snake = np.zeros((70, 70), bool)
+    snake[::2, :] = True
+    snake[1::4, -1] = True
+    snake[3::4, 0] = True
+    active = np.concatenate([active, snake[None]])
+    t_lab = t_label(torch.from_numpy(active))
+    t_mask, t_area = t_largest(torch.from_numpy(active))
+    for b in range(active.shape[0]):
+        np.testing.assert_array_equal(t_lab[b].numpy(), np.asarray(j_label(jnp.asarray(active[b]))))
+        j_mask, j_area = j_largest(jnp.asarray(active[b]))
+        np.testing.assert_array_equal(t_mask[b].numpy(), np.asarray(j_mask))
+        assert int(t_area[b]) == int(j_area)
