@@ -49,7 +49,22 @@ Phases, each printing its own line; any failure exits non-zero:
    eagerly with the same draws (equal within 1e-6), homography, multiview
    and libmv against almeida per stream (within 0.05 deg), and the masked
    path (a third of the points invalid, ``dense=False``), held the same;
-8. timing: ms/step of the serving step at B=1, 4, 8, of the all-estimator
+8. codec: the codec-MV path (``run_batch`` over ``.mvec`` streams ->
+   ``step_from_flow`` with masked RANSAC and the sparse detector in the
+   consumers' graph) on a fixture built on the CPU (``codec_fixture``: 8
+   streams x 24 frames of quarter-pel vectors on the 120 x 68 macroblock
+   lattice of 1080p for a camera rotation, 12% intra blocks dropped, 8%
+   outliers, the last stream ending after 16 frames), capacity 16,384, all
+   four estimators + block_motion with ``drop_ended``: checks the steps,
+   the vector counts, finite poses, the short stream's frozen pose, one
+   graph replay per step, each estimator's error against the ground truth
+   (``CODEC_GT_DEG``), the detector and almeida against the port on the
+   CPU (same files, same uniforms), graph against eager over two steps
+   with libmv's carry, and a ``LivePipeline.set_property`` that the next
+   step sees with no new graph; times ``step_from_flow`` at B=1, 4, 8
+   (almeida + homography) and B=8 (all four), the upload and the live
+   step, with the consumers' kernels per replay;
+9. timing: ms/step of the serving step at B=1, 4, 8, of the all-estimator
    step at B=8 and of the cv step for both algorithms, kernel and plain
    paths; the consumers' graph at B=4 with almeida alone, homography alone
    and both, and at B=8 with multiview alone, libmv alone and all four,
@@ -119,6 +134,28 @@ ALL4_BATCH = 8
 # share and multiview hold the flow kernels.
 EPI_STEP_DEG = 0.01
 EPI_STEP_OFF = {"multiview": 0, "libmv": 42}
+
+# The "codec" phase: 8 .mvec streams of 24 frames at 1920x1080 through
+# run_batch at the reference's capacity of 16,384 vectors; the camera is
+# run_batch's default (16:9, the 1080p aspect, and a 90 deg fov_y).
+CODEC_STREAMS, CODEC_FRAMES, CODEC_CAPACITY = 8, 24, 16384
+CODEC_FOV_Y = 90.0
+CODEC_INTRA, CODEC_OUTLIERS = 0.12, 0.08
+# The last stream ends early: run_batch(drop_ended=True) feeds it empty
+# flows from then on, and its poses must stay frozen.
+CODEC_SHORT = 16
+# Mean rotation error per frame against the ground truth, every estimator
+# on every stream (0.0002-0.0042 deg on an H100: PERF.md).
+CODEC_GT_DEG = 0.05
+# The detector and almeida on the card against the port on the CPU, same
+# files and uniforms, over the first CODEC_CPU_FRAMES frames: detections
+# equal, island fields within 1e-6, almeida's delta rotation of every step
+# within 1e-4 deg (the float32 floor of its 30-step refit on ~1,000
+# points: 0-9.7e-5 deg on an H100, PERF.md; the integrated rotation sums
+# them and is printed).
+CODEC_CPU_FRAMES = 6
+CODEC_FIELD_TOL = 1e-6
+CODEC_ROT_DEG = 1e-4
 
 # Roofline of one H100 SXM (published, dense, at 700 W): HBM3 bytes/s and
 # float32 operations/s outside the tensor cores.
@@ -468,16 +505,17 @@ def compare(torch, got, ref, kind):
     return d.max().item(), share, finite and share < MAX_MISMATCH_SHARE
 
 
-def make_pipeline(device, plain: bool, estimators=ESTIMATORS):
+def make_pipeline(device, plain: bool, estimators=ESTIMATORS, fov_y: float = 60.0):
     """The serving configuration: ``estimators`` (bench.py's almeida +
-    homography by default) + block_motion, serving mode, 1080p camera."""
+    homography by default) + block_motion, serving mode, 1080p camera
+    (the codec phase takes run_batch's fov_y, CODEC_FOV_Y)."""
     from ofps_torch.core.camera import StandardCamera
     from ofps_torch.detectors.base import create_detector
     from ofps_torch.estimators.base import create_estimator
     from ofps_torch.parallel.stream import StreamPipeline
 
     return StreamPipeline(
-        StandardCamera.create(W / H, 60.0),
+        StandardCamera.create(W / H, fov_y),
         [create_estimator(name) for name in estimators],
         create_detector("block_motion"),
         emit_dense_flow=False,
@@ -730,6 +768,252 @@ def run_estimators(torch, device, batch: int) -> None:
         fail("an estimator disagrees with almeida on the synthetic rotation")
 
 
+def codec_fixture(torch, directory: Path, streams: int = CODEC_STREAMS,
+                  frames: int = CODEC_FRAMES, seed: int = SEED + 11, lengths=None):
+    """The "codec" phase's input, built on the CPU with the port's own
+    camera and written with its ``.mvec`` writer and ``apps.gt``: per
+    stream a ``.mvec`` file of ``frames`` frames (``lengths`` may shorten
+    some) and a ground-truth CSV.  Frame 1 is empty (an I-frame); every
+    later frame holds the vectors at the centres of the 16x16 macroblock
+    lattice of 1920x1080 (120 x 68) for a camera rotation of 0.2-0.5 deg
+    about an axis of the stream's own, quantized to quarter-pel, with
+    CODEC_INTRA of the blocks dropped (intra blocks) and CODEC_OUTLIERS of
+    the rest replaced by uniform +-16 px vectors.  Returns (mvec paths, GT
+    paths, vectors per stream and frame (streams, frames))."""
+    import numpy as np
+
+    from ofps_torch.apps import gt as gtmod
+    from ofps_torch.core import quat
+    from ofps_torch.core.camera import StandardCamera
+    from ofps_torch.decoders.mvec import write_mvec_frame
+
+    cam = StandardCamera.create(W / H, CODEC_FOV_Y)
+    rng = np.random.default_rng(seed)
+    xs = (np.arange(W // 16) * 16 + 8) / W
+    ys = (np.arange(-(-H // 16)) * 16 + 8) / H
+    lattice = np.stack(np.meshgrid(xs, ys), -1).reshape(-1, 2).astype(np.float32)
+    pos_t = torch.from_numpy(lattice)
+    scale = np.array([4.0 * W, 4.0 * H], np.float32)  # quarter-pel units
+    mvecs, gts = [], []
+    counts = np.zeros((streams, frames), np.int64)
+    for s in range(streams):
+        axis = rng.standard_normal(3)
+        axis /= np.linalg.norm(axis)
+        n_frames = frames if lengths is None else lengths[s]
+        acc = quat.identity(torch.float64)
+        rows = [gtmod.GroundTruthRow(frame=1, fov_x=CODEC_FOV_Y, fov_y=CODEC_FOV_Y,
+                                     rot=acc.numpy(), pos=np.zeros(3))]
+        mvecs.append(directory / f"s{s}.mvec")
+        gts.append(directory / f"s{s}_gt.csv")
+        with open(mvecs[-1], "wb") as f:
+            write_mvec_frame(f, np.zeros((0, 2)), np.zeros((0, 2)))
+            for t in range(1, n_frames):
+                half = math.radians(rng.uniform(0.2, 0.5)) / 2
+                q = torch.tensor([math.cos(half), *(math.sin(half) * axis)], dtype=torch.float64)
+                # The estimators return the inverse of the rotation that
+                # moves the points: the flow is made by q's inverse.
+                rot = quat.to_matrix4(quat.conj(q).float())
+                motion = cam.delta(pos_t, rot).numpy()
+                bad = rng.random(len(lattice)) < CODEC_OUTLIERS
+                motion[bad] = rng.uniform(-16.0, 16.0, (int(bad.sum()), 2)) / (W, H)
+                motion = (np.round(motion * scale) / scale).astype(np.float32)
+                keep = rng.random(len(lattice)) >= CODEC_INTRA
+                write_mvec_frame(f, lattice[keep], motion[keep])
+                counts[s, t] = int(keep.sum())
+                acc = quat.mul(q, acc)
+                rows.append(gtmod.GroundTruthRow(frame=t + 1, fov_x=CODEC_FOV_Y,
+                                                 fov_y=CODEC_FOV_Y, rot=acc.numpy(),
+                                                 pos=np.zeros(3)))
+        gtmod.write_ground_truth(str(gts[-1]), rows)
+    return [str(p) for p in mvecs], [str(p) for p in gts], counts
+
+
+def run_codec(torch, device, counters, smi):
+    """The "codec" phase: :func:`codec_fixture`'s streams through
+    ``run_batch`` on the card (all four estimators + block_motion,
+    ``drop_ended``, ground truth), the detector and almeida against the
+    port on the CPU, the consumers' graph against eager over two steps
+    with libmv's carry, a live property change without a new graph, and
+    the step's timing.  Returns the timing as a dict."""
+    import tempfile
+
+    import numpy as np
+
+    from ofps_torch.apps.batch import FlowUploader, run_batch
+    from ofps_torch.core import quat
+    from ofps_torch.core.motion import Densifier, flow_cell_index
+    from ofps_torch.detectors.block_motion import block_dim
+    from ofps_torch.decoders.mvec import MvecDecoder
+    from ofps_torch.parallel.stream import _leaves
+    from ofps_torch.pipeline.runtime import LivePipeline
+
+    b, cap = CODEC_STREAMS, CODEC_CAPACITY
+    lengths = [CODEC_FRAMES] * (b - 1) + [CODEC_SHORT]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mvecs, gts, counts = codec_fixture(torch, Path(tmp), b, CODEC_FRAMES, lengths=lengths)
+        build_s = time.perf_counter() - t0
+        res, launches = count_launches(torch, counters, lambda: run_batch(
+            mvecs, estimators=[{"name": n} for n in ALL4], ground_truths=gts,
+            capacity=cap, drop_ended=True, fetch_lag=1, device=device))
+        gt_deg = {name: [round(math.degrees(res.gt_avg_err[(s, name)][0]), 5) for s in range(b)]
+                  for name in ALL4}
+        rots = np.stack([np.stack(h) for h in res.rot_hist])  # (E, T, B, 4)
+        deltas = np.stack([np.stack(h) for h in res.delta_rot])
+        finite = bool(np.isfinite(rots).all() and np.isfinite(deltas).all()
+                      and all(np.isfinite(p).all() for p in res.poses_pos))
+        frozen = bool((rots[:, CODEC_SHORT:, -1] == rots[:, CODEC_SHORT - 1:CODEC_SHORT, -1]).all()
+                      and (deltas[:, CODEC_SHORT:, -1] == [1.0, 0.0, 0.0, 0.0]).all())
+        counts_ok = bool((res.vectors == counts.T).all())
+        phase("codec", f"fixture {b} .mvec streams x {lengths} frames, {int(counts.sum())} "
+              f"vectors (mean {counts[:, 1:].mean():.1f} per frame), built in {build_s:.2f} s; "
+              f"run_batch 1080p lattice B={b} capacity {cap} ({'+'.join(ALL4)} + "
+              f"block_motion, drop_ended, fetch_lag 1): {res.frames} steps, graph replays "
+              f"{res.graph_replays}, eager runs {res.eager_runs}, hand-kernel launches "
+              f"{launches} (this path reaches no pl.pallas_call); vectors per step as in the "
+              f"files={counts_ok}; poses finite={finite}; the short stream frozen after its "
+              f"end={frozen}; host split {json.dumps(res.perf.summary())}")
+        phase("codec", f"mean rotation error per frame vs ground truth, deg, per stream: "
+              f"{gt_deg} (gate {CODEC_GT_DEG})")
+        if not (res.frames == CODEC_FRAMES and counts_ok and finite and frozen):
+            fail("codec: wrong steps or vector counts, a non-finite pose, or a frozen stream moved")
+        if res.graph_replays != res.frames or res.eager_runs != 0:
+            fail("codec: the consumers did not replay as one CUDA graph per step")
+        if max(max(v) for v in gt_deg.values()) > CODEC_GT_DEG:
+            fail("codec: an estimator misses the ground truth")
+
+        # The detector and almeida on the card against the port on the CPU:
+        # the same files, the same uniforms (drawn on the CPU).
+        pipe2 = make_pipeline(device, False, ESTIMATORS, CODEC_FOV_Y)
+        pipe2_h = make_pipeline(torch.device("cpu"), False, ESTIMATORS, CODEC_FOV_Y)
+        ups = FlowUploader(b, cap, device), FlowUploader(b, cap, "cpu")
+        decs = [MvecDecoder(p) for p in mvecs]
+        st, st_h = pipe2.init_state(b, 1, 1), pipe2_h.init_state(b, 1, 1)
+        gen_h = torch.Generator().manual_seed(SEED + 12)
+        flows, same_det, field_err, alm_int, dev_counts = [], True, 0.0, 0.0, True
+        alm_delta = []
+        for t in range(CODEC_CPU_FRAMES):
+            frames = [d.process_frame() for d in decs]
+            for u in ups:
+                u.pack(frames)
+            flow, flow_h = (u.upload() for u in ups)
+            dev_counts &= bool((flow.count().cpu() == torch.from_numpy(counts[:, t]).float()).all())
+            draws_h = tuple(e.draw(gen_h, (b,), cap, "cpu", dense=False)
+                            for e in pipe2_h.estimators)
+            st, out = pipe2.step_from_flow(st, flow, draws=tuple(x.to(device) for x in draws_h))
+            st_h, out_h = pipe2_h.step_from_flow(st_h, flow_h, draws=draws_h)
+            det, det_h = out.detection, out_h.detection
+            same_det &= all(bool(torch.equal(x.cpu(), y)) for x, y in
+                            ((det.detected, det_h.detected), (det.area, det_h.area),
+                             (det.mask, det_h.mask)))
+            field_err = max(field_err, (det.field.cpu() - det_h.field).abs().max().item())
+            alm_delta.append([round(math.degrees(x), 7) for x in quat.angle_to(
+                out.delta_rot[0].cpu(), out_h.delta_rot[0]).tolist()])
+            alm_int = max(alm_int, math.degrees(quat.angle_to(out.rot[0].cpu(), out_h.rot[0])
+                                                .max().item()))
+            flows.append(flow)
+        for d in decs:
+            d.close()
+    phase("codec", f"card vs the port on the CPU, {CODEC_CPU_FRAMES} steps, "
+          f"{'+'.join(ESTIMATORS)} + block_motion, same files and uniforms: vector counts on "
+          f"the device as in the files={dev_counts}; detections equal={same_det}, island field "
+          f"max |diff| {field_err:.3e}; almeida delta rotations apart per step and stream, "
+          f"deg: {alm_delta} (max {max(map(max, alm_delta)):.3e}, gate {CODEC_ROT_DEG}); "
+          f"integrated rotation max {alm_int:.3e} deg apart")
+    if not (dev_counts and same_det and field_err <= CODEC_FIELD_TOL
+            and max(map(max, alm_delta)) <= CODEC_ROT_DEG):
+        fail("codec: the card and the CPU disagree")
+
+    # All four live: graph against eager over two steps (libmv's carry),
+    # then a property change that the next step sees with no new graph.
+    pipe4 = make_pipeline(device, False, ALL4, CODEC_FOV_Y)
+    live = LivePipeline(pipe4, b, 1, 1, from_flow=True)
+    gen = torch.Generator(device=device).manual_seed(SEED + 13)
+    for flow in flows[1:3]:
+        live.step(flow, gen)
+    lm = ALL4.index("libmv")
+    has = live.state.est[lm].has.tolist()
+    g_state = e_state = live.state
+    g_err = 0.0
+    for flow in flows[3:5]:
+        draws = tuple(e.draw(gen, (b,), cap, device, dense=False) for e in pipe4.estimators)
+        graphed = pipe4._run_consumers(g_state, flow, draws, live.props)
+        eager = pipe4._consume(e_state.est, e_state.rot, e_state.pos, flow, draws, live.props)
+        torch.cuda.synchronize()
+        g_err = max(g_err, max((x.float() - y.float()).abs().max().item()
+                               for x, y in zip(_leaves(graphed), _leaves(eager))))
+        g_state = g_state._replace(rot=graphed[0], pos=graphed[1], est=graphed[4])
+        e_state = e_state._replace(rot=eager[0], pos=eager[1], est=eager[4])
+    before = live.step(flows[5], gen)[1].detection.detected.tolist()
+    graphs = len(pipe4._graphs)
+    applied = live.set_property("detector", "target_motion", 0.1)
+    after = live.step(flows[5], gen)[1].detection.detected.tolist()
+    live.set_property("detector", "target_motion", pipe4.detector.params.target_motion)
+    phase("codec", f"live all four B={b}: libmv has={has}; graph vs eager over two steps "
+          f"(carry through the graph) max |diff| {g_err:.3e}; target_motion 0.003 -> 0.1: "
+          f"applied={applied}, detected {before} -> {after}, graphs {graphs} -> "
+          f"{len(pipe4._graphs)}, eager runs {pipe4.eager_runs}")
+    if g_err > GRAPH_TOL or min(has) < 1.0:
+        fail("codec: the consumers' graph and eager calls disagree, or libmv's chain not set")
+    if not (applied and any(before) and not any(after) and graphs == len(pipe4._graphs) == 1
+            and pipe4.eager_runs == 0):
+        fail("codec: a live property change was not seen, or it captured a new graph")
+
+    # Timing: ms per step_from_flow (CUDA events; the draws are part of
+    # the step), the upload, and the consumers' kernels per replay.
+    flow8 = flows[2]
+    step_ms, kernels = {}, {}
+    for names, bb in ((ESTIMATORS, 1), (ESTIMATORS, 4), (ESTIMATORS, 8), (ALL4, 8)):
+        pipe = pipe2 if (names, bb) == (ESTIMATORS, b) else (
+            pipe4 if names == ALL4 else make_pipeline(device, False, names, CODEC_FOV_Y))
+        flow = type(flow8)(*(x[:bb] for x in flow8))
+        state = pipe.init_state(bb, 1, 1)
+        key = f"{'+'.join(names)}_B{bb}"
+        reps = [time_ms(torch, lambda p=pipe, s=state, f=flow: p.step_from_flow(s, f, gen), 10)
+                for _ in range(3)]
+        step_ms[key] = sorted(reps)[1]
+        draws = tuple(e.draw(gen, (bb,), cap, device, dense=False) for e in pipe.estimators)
+        n, kms = consumer_kernels(torch, pipe, state, flow, draws)
+        kernels[key] = {"kernels": n, "kernel_ms": kms, "repeats_ms": reps}
+        phase("timing", f"codec step_from_flow B={bb} capacity {cap}, {'+'.join(names)} + "
+              f"block_motion: {step_ms[key]:.3f} ms/step, median of 3 x 10 steps "
+              f"{[round(r, 3) for r in reps]} ({step_ms[key] / bb:.3f} ms/frame); "
+              + (f"{n} CUDA kernels, {kms:.3f} ms of kernel time in the same consumers "
+                 f"called eagerly (torch.profiler)" if n else "kernels not measured")
+              + f" | {smi}")
+    up = FlowUploader(b, cap, device)
+    up.pack([None] * b)
+    upload_ms = time_ms(torch, up.upload, 10)
+    live_ms = time_ms(torch, lambda: live.step(flow8, gen), 10)
+    # The sparse detector alone, and its deterministic one-hot accumulation
+    # against scatter_add (atomics: the order of the adds varies), each on
+    # the device alone (a CUDA graph of 20 calls).
+    detect = pipe4.detector.detect
+    dim = block_dim(pipe4.detector.params)
+    dens = Densifier.zeros(dim, dim, (b,), device)
+    idx = (lambda x, y: y * dim + x)(*flow_cell_index(flow8.pos, dim, dim))
+    vals = torch.cat([flow8.mask[..., None], flow8.motion * flow8.mask[..., None]], dim=-1)
+    det_ms = {
+        "detect": device_ms(torch, lambda: detect(flow8)),
+        "onehot_accumulate": device_ms(torch, lambda: dens.add_flow(flow8)),
+        "scatter_add_accumulate": device_ms(torch, lambda: torch.zeros(
+            (b, dim * dim, 3), device=device).scatter_add_(
+                1, idx[..., None].expand(-1, -1, 3), vals)),
+    }
+    phase("timing", f"codec upload of one (B={b}, {cap}) step, {b * cap * 20 / 1e6:.2f} MB "
+          f"pinned: {upload_ms:.3f} ms; LivePipeline step (props as device scalars), all "
+          f"four B={b}: {live_ms:.3f} ms; block_motion sparse detect B={b}, device ms: "
+          f"{ {k: round(v, 4) for k, v in det_ms.items()} }; run_batch host clock, median "
+          f"ms per step: { {k: round(sorted(v)[len(v) // 2] * 1e3, 3) for k, v in res.perf.stages.items()} } "
+          f"| {smi}")
+    if not all(math.isfinite(v) for v in (*step_ms.values(), upload_ms, live_ms,
+                                          *det_ms.values())):
+        fail("codec: non-finite timing")
+    return {"step_ms": step_ms, "consumer_kernels": kernels, "upload_ms": upload_ms,
+            "live_step_ms": live_ms, "detector_device_ms": det_ms, "gt_deg": gt_deg,
+            "host_split": res.perf.summary(), "launches": launches}
+
+
 def consumer_kernels(torch, pipe, state, grid, draws):
     """CUDA kernels and their summed device ms in one eager ``_consume``
     (the calls its CUDA graph replays), from ``torch.profiler``; (None,
@@ -963,7 +1247,12 @@ def main() -> None:
     # lattice).
     run_estimators(torch, device, batch)
 
-    # 8. timing
+    # 8. the codec-MV path: .mvec streams through run_batch, B=8.
+    codec = run_codec(torch, device, counters, smi)
+    launches_by_path["codec"] = codec.pop("launches")
+    torch.cuda.empty_cache()
+
+    # 9. timing
     from ofps_torch.decoders.cv import CvFlowStep
     from ofps_torch.ops.flow_pyramid import dense_flow_warm
 
@@ -1114,7 +1403,7 @@ def main() -> None:
         "step_config": "+block_motion, ".join(["+".join(ESTIMATORS), "+".join(ALL4)]) + "+block_motion",
         "consumers_ms": consumers_ms,
         "consumer_kernels": consumer_kernel_counts,
-        "cv_step_ms": cv_ms, "card": smi}))
+        "cv_step_ms": cv_ms, "codec": codec, "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

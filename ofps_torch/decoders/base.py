@@ -1,10 +1,11 @@
 """Decoder protocol and registry (port of ``ofps_tpu.decoders.base``).
 
 Decoders are host-side stateful objects producing numpy arrays, one
-:class:`DecodedFrame` per video frame.  The built-in plugins are "av" (codec
+:class:`DecodedFrame` per video frame.  The built-in plugins are "mvec"
+(the ``.mvec`` replay reader, :mod:`ofps_torch.decoders.mvec`), "av" (codec
 motion vectors, :mod:`ofps_torch.decoders.av`) and "cv" (dense flow on the
-device, :mod:`ofps_torch.decoders.cv`).  The JAX package's ".mvec" replay
-reader and external plugin modules are not ported yet.
+device, :mod:`ofps_torch.decoders.cv`); modules named in
+``OFPS_TORCH_PLUGINS`` may register more (:mod:`ofps_torch.core.plugins`).
 """
 
 from __future__ import annotations
@@ -56,16 +57,27 @@ def register(name: str):
 
 
 def _load_builtin_decoders() -> None:
+    """Import the built-in decoders (one that fails to import, e.g. for a
+    missing FFmpeg, is skipped) and the external plugin modules."""
     import importlib
 
-    for mod in ("av", "cv"):
-        importlib.import_module(f"ofps_torch.decoders.{mod}")
+    from ofps_torch.core.plugins import load_external_plugins
+
+    for mod in ("mvec", "av", "cv"):
+        try:
+            importlib.import_module(f"ofps_torch.decoders.{mod}")
+        except ImportError:
+            pass
+    load_external_plugins()
 
 
 def create_decoder(input_path: str, plugin: Optional[str] = None, **kwargs) -> Decoder:
-    """The decoder named ``plugin`` (default "av") over ``input_path``."""
+    """The decoder named ``plugin`` over ``input_path``: with no plugin
+    named, the "mvec" replay reader for a ``.mvec`` path and "av" for any
+    other."""
     _load_builtin_decoders()
-    plugin = plugin or "av"
+    if plugin is None:
+        plugin = "mvec" if input_path.endswith(".mvec") else "av"
     if plugin not in _REGISTRY:
         raise KeyError(f"unknown decoder {plugin!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[plugin](input_path, **kwargs)

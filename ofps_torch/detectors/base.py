@@ -44,8 +44,11 @@ def register(name: str):
 
 
 def create_detector(name: str, **kwargs) -> DetectorInstance:
+    from ofps_torch.core.plugins import load_external_plugins
+
     for mod in _BUILTIN:
         importlib.import_module(f"ofps_torch.detectors.{mod}")
+    load_external_plugins()
     if name not in _REGISTRY:
         raise KeyError(f"unknown detector {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name](**kwargs)

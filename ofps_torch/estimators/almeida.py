@@ -30,7 +30,14 @@ from ofps_torch.ops.geometry_uv import (
     qmul,
     solve3_planes,
 )
-from ofps_torch.ops.robust import dense_eval_subset, draw_dense, eval_subset, sample_indices
+from ofps_torch.ops.robust import (
+    as_indices,
+    dense_eval_subset,
+    draw,
+    draw_dense,
+    eval_subset,
+    sample_indices,
+)
 
 EPS = 0.001 * math.pi / 180.0
 ALPHA = 0.5
@@ -144,8 +151,9 @@ def solve_ypr_ransac(
 
     ``dense=True`` asserts an all-ones mask (static draws and eval subset);
     ``dense=False`` samples and evaluates only valid (mask > 0.5) points.
-    ``fit_idx``: optional (H, 3) or (..., H, 3) hypothesis draws (tests
-    inject the JAX package's draws); otherwise drawn from ``generator``.
+    ``fit_idx``: optional (H, 3) or (..., H, 3) hypothesis draws, point
+    indices or uniforms over the valid points (``ops.robust.as_indices``;
+    tests inject the JAX package's); otherwise drawn from ``generator``.
     """
     pos, motion, mask = flow
     n = pos.shape[-2]
@@ -157,7 +165,7 @@ def solve_ypr_ransac(
     if fit_idx is None:
         fit_idx = (draw_dense(generator, lead, n, num_iters, 3, dev) if dense
                    else sample_indices(generator, n, num_iters, 3, w=mask))
-    fit_idx = fit_idx.to(device=dev, dtype=torch.int64)
+    fit_idx = as_indices(fit_idx.to(dev), mask).to(torch.int64)
 
     def fit_plane(plane):  # (..., N) -> (..., 3, H)
         return _take(plane, fit_idx).transpose(-1, -2)
@@ -223,8 +231,8 @@ def make_almeida(**kwargs) -> EstimatorInstance:
         estimate=estimate,
         dyn_defaults=lambda: {"inlier_angle_deg": params.inlier_angle_deg},
         draw=(
-            (lambda generator, lead, n, device: draw_dense(
-                generator, lead, n, params.num_iters, 3, device))
+            (lambda generator, lead, n, device, dense=True: draw(
+                generator, lead, n, params.num_iters, 3, device, dense))
             if params.use_ransac else None
         ),
     )

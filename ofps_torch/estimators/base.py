@@ -7,7 +7,8 @@ carried state; stateless estimators use ``()``) and
 fit_idx=None) -> (quat (B, 4), translation (B, 3), state)`` over a batch of
 B sparse flows.  An estimator that samples may also provide ``draw``: its
 random inputs drawn ahead of ``estimate`` (passed back as ``fit_idx``), so
-that ``estimate`` itself is a fixed sequence of device operations.
+that ``estimate`` itself is a fixed sequence of device operations, dense
+or masked.
 """
 
 from __future__ import annotations
@@ -46,8 +47,10 @@ class EstimatorInstance:
     dyn_defaults: Callable[[], dict] = dataclasses.field(
         default_factory=lambda: (lambda: {})
     )
-    # (generator, lead_shape, n_points, device) -> fit_idx for ``estimate``:
-    # a tensor, or a tuple of tensors.
+    # (generator, lead_shape, n_points, device, dense=True) -> fit_idx for
+    # ``estimate``: a tensor, or a tuple of tensors.  Dense draws are point
+    # indices; masked ones (dense=False) are uniforms that ``estimate`` maps
+    # to the valid points of its flow (``ops.robust.as_indices``).
     draw: Optional[Callable[..., Any]] = None
 
     def motion_step(self, state, flow, camera, rot, pos, generator=None,
@@ -69,8 +72,11 @@ def register(name: str):
 
 
 def _load_builtin_estimators() -> None:
+    from ofps_torch.core.plugins import load_external_plugins
+
     for mod in _BUILTIN:
         importlib.import_module(f"ofps_torch.estimators.{mod}")
+    load_external_plugins()
 
 
 def available_estimators():

@@ -27,7 +27,7 @@ from ofps_torch.ops.homography import (
     gn_refine_homography,
     homography_transfer_error,
 )
-from ofps_torch.ops.robust import draw_dense, ransac_budget, robust_fit
+from ofps_torch.ops.robust import draw, ransac_budget, robust_fit
 
 
 class HomographyParams(NamedTuple):
@@ -149,6 +149,6 @@ def make_homography(**kwargs) -> EstimatorInstance:
         init=lambda: (),
         estimate=estimate,
         dyn_defaults=lambda: {"max_error": float(params.max_error)},
-        draw=lambda generator, lead, n, device: draw_dense(
-            generator, lead, n, h_count, 4, device),
+        draw=lambda generator, lead, n, device, dense=True: draw(
+            generator, lead, n, h_count, 4, device, dense),
     )

@@ -42,6 +42,7 @@ from ofps_torch.ops.epipolar import (
     transform_points,
 )
 from ofps_torch.ops.robust import (
+    draw,
     draw_dense,
     indices_from_uniform,
     ransac_budget,
@@ -237,9 +238,10 @@ def _where(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def estimate_libmv(params: LibmvParams, state: PrevMotion, flow: SparseFlow, camera,
                    draws, move_magnitude=None, max_error=None, dense: bool = False):
     """One step: (rotation (..., 4), translation (..., 3), new state).
-    ``draws``: (primary indices (..., H, k), chained-field uniforms (...,
-    H, k)).  ``move_magnitude``, where given, replaces the chained
-    translation magnitude in the output and in the chain anchor."""
+    ``draws``: (the primary solve's draws (..., H, k), indices or uniforms
+    over the valid points; the chained field's uniforms (..., H, k)).
+    ``move_magnitude``, where given, replaces the chained translation
+    magnitude in the output and in the chain anchor."""
     idx1, u2 = draws
     pos, motion, w = flow.pos, flow.motion, flow.mask
     r_mat, t_raw = _pose_from_field(params, camera, pos, motion, w, idx1, max_error,
@@ -295,11 +297,12 @@ def make_libmv(**kwargs) -> EstimatorInstance:
     params = LibmvParams(**kwargs)
     h_count, k = hypothesis_count(params), params.algo_points
 
-    def draw(generator, lead, n, device):
-        """(dense primary indices (*lead, H, k), chained-field uniforms
-        (*lead, H, k))."""
-        idx = draw_dense(generator, lead, n, h_count, k, device)
-        return idx, torch.rand(tuple(lead) + (h_count, k), generator=generator, device=device)
+    def draw_both(generator, lead, n, device, dense=True):
+        """(the primary solve's draws (*lead, H, k): dense indices, or
+        uniforms for a masked flow; the chained field's uniforms (*lead, H,
+        k))."""
+        primary = draw(generator, lead, n, h_count, k, device, dense)
+        return primary, torch.rand(tuple(lead) + (h_count, k), generator=generator, device=device)
 
     def estimate(state: PrevMotion, flow: SparseFlow, camera, generator=None, props=None,
                  dense=False, fit_idx=None, move_magnitude=None):
@@ -326,5 +329,5 @@ def make_libmv(**kwargs) -> EstimatorInstance:
         init=PrevMotion.empty,
         estimate=estimate,
         dyn_defaults=lambda: {"max_error": float(params.max_error)},
-        draw=draw,
+        draw=draw_both,
     )

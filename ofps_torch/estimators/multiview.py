@@ -33,7 +33,7 @@ from ofps_torch.ops.epipolar import (
     transform_points,
 )
 from ofps_torch.ops.five_point import five_point_essential
-from ofps_torch.ops.robust import draw_dense, ransac_budget, robust_fit
+from ofps_torch.ops.robust import draw, ransac_budget, robust_fit
 
 
 class MultiviewParams(NamedTuple):
@@ -151,5 +151,6 @@ def make_multiview(**kwargs) -> EstimatorInstance:
         init=lambda: (),
         estimate=estimate,
         dyn_defaults=lambda: {"max_error": float(params.max_error)},
-        draw=lambda generator, lead, n, device: draw_dense(generator, lead, n, h_count, k, device),
+        draw=lambda generator, lead, n, device, dense=True: draw(
+            generator, lead, n, h_count, k, device, dense),
     )

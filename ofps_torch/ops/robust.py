@@ -157,6 +157,25 @@ def draw_dense(generator, lead, n: int, rows: int, k: int, device) -> torch.Tens
     return idx.reshape(tuple(lead) + (rows, k))
 
 
+def draw(generator, lead, n: int, rows: int, k: int, device, dense: bool = True):
+    """An estimator's RANSAC draws made ahead of its fit: dense indices
+    (``draw_dense``), or for a masked flow (``dense=False``) the (*lead,
+    rows, k) uniforms that :func:`indices_from_uniform` maps to valid
+    points inside the fit, where the mask is known."""
+    if dense:
+        return draw_dense(generator, lead, n, rows, k, device)
+    return torch.rand(tuple(lead) + (rows, k), generator=generator, device=device)
+
+
+def as_indices(draws: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Point indices of ``draws`` (..., rows, k): integer draws are
+    indices already; float draws are uniforms, mapped to the valid points
+    of ``w`` (..., N) by :func:`indices_from_uniform`."""
+    if draws.is_floating_point():
+        return indices_from_uniform(draws, w)
+    return draws
+
+
 def masked_median(err: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Median over the valid (w > 0.5) entries of the last dim; rows with
     no valid entry give 1e30.  ``w`` broadcasts against ``err``.
@@ -226,9 +245,9 @@ def robust_fit(
     weights ``w``; the JAX package's ``robust_fit`` over a batch of point
     sets.
 
-    ``idx`` (*lead, H, k): the hypotheses' minimal-sample draws (else drawn
-    from ``generator``: the dense sampler when ``dense``, the masked one
-    otherwise).  ``eval_cap``: hypotheses are scored on a spatially uniform
+    ``idx`` (*lead, H, k): the hypotheses' minimal-sample draws, point
+    indices or uniforms (:func:`as_indices`); else drawn from ``generator``:
+    the dense sampler when ``dense``, the masked one otherwise.  ``eval_cap``: hypotheses are scored on a spatially uniform
     subset of at most that many valid points (static when ``dense``); the
     winner's inlier set is recomputed over all points.  ``prescore_cap``:
     every candidate is first scored on a strided ``prescore_cap``-point
@@ -249,7 +268,7 @@ def robust_fit(
             idx = draw_dense(generator, lead, n, num_hypotheses, sample_size, dev)
         else:
             idx = sample_indices(generator, n, num_hypotheses, sample_size, w=w)
-    idx = idx.to(device=dev, dtype=torch.int64).expand(lead + idx.shape[-2:])
+    idx = as_indices(idx.to(dev), w).to(torch.int64).expand(lead + idx.shape[-2:])
 
     models, valid = minimal_fit(
         _take_points(x1, idx), _take_points(x2, idx),

@@ -1,5 +1,5 @@
 """Multi-stream batched per-frame pipeline (port of
-``ofps_tpu.parallel.stream``), the serving step:
+``ofps_tpu.parallel.stream``), the serving steps:
 
     frames (B, H, W) -> dense flow (pyramid of hand kernels) -> grid sums
       -> (B, gh, gw, 2) normalized grid -> SparseFlow (B, G, 2)
@@ -7,21 +7,32 @@
          |     multiview, libmv) -> pose integration
          '-> detector (static-lattice detect_field)
 
+    codec MVs (B, N, 2) + mask -> SparseFlow (step_from_flow)
+         |-> every estimator (dense=False: masked RANSAC) -> pose integration
+         '-> detector (sparse detect)
+
 Rotation/position state, estimator carry and the dense-flow warm start all
 travel in :class:`StreamState`; B streams form the leading batch dim.  On
-CUDA the estimators and the detector replay as one CUDA graph, the
-estimators' carries (libmv's :class:`PrevMotion`) passing in and out of it.
+CUDA the estimators and the detector replay as one CUDA graph per input
+kind and shape, the estimators' carries (libmv's :class:`PrevMotion`) and
+the per-frame properties (0-d device tensors) passing in as static inputs.
 """
 
 from __future__ import annotations
 
-from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
+import functools
+from typing import Any, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
 from ofps_torch.core import quat
 from ofps_torch.core.camera import StandardCamera
-from ofps_torch.core.motion import field_to_sparse, grid_downsample_uv, grid_size_for
+from ofps_torch.core.motion import (
+    SparseFlow,
+    field_to_sparse,
+    grid_downsample_uv,
+    grid_size_for,
+)
 from ofps_torch.detectors.base import DetectionResult, DetectorInstance
 from ofps_torch.device import resolve_device
 from ofps_torch.estimators.base import EstimatorInstance
@@ -133,7 +144,9 @@ class StreamPipeline:
 
     def dyn_props(self):
         """Default per-frame properties: ``{"estimators": (dict, ...),
-        "detector": dict}``; pass a changed copy to a step."""
+        "detector": dict}`` of numbers; pass a changed copy to a step.  A
+        value may also be a 0-d tensor (``LivePipeline`` keeps them on the
+        device, so that a change is one copy and no new graph)."""
         return {
             "estimators": tuple(est.dyn_defaults() for est in self.estimators),
             "detector": self.detector.dyn_defaults() if self.detector else {},
@@ -141,17 +154,22 @@ class StreamPipeline:
 
     # -- consumers -----------------------------------------------------------
 
-    def _consume(self, est_states, rot, pos, grid, draws, props=None):
-        """Estimators + detector on the all-valid (B, gh, gw, 2) grid: a
-        fixed sequence of device operations (random inputs come in as
-        ``draws``, one per estimator, None for an estimator without them)."""
-        sparse = field_to_sparse(grid)
+    def _consume(self, est_states, rot, pos, field: Union[torch.Tensor, SparseFlow],
+                 draws, props=None):
+        """Estimators + detector: a fixed sequence of device operations
+        (random inputs come in as ``draws``, one per estimator, None for an
+        estimator without them).  ``field`` is the all-valid (B, gh, gw, 2)
+        grid (``dense=True`` estimators, the detector's static-lattice
+        ``detect_field``) or a masked (B, N) :class:`SparseFlow` (masked
+        RANSAC, the detector's sparse ``detect``)."""
+        dense = isinstance(field, torch.Tensor)
+        sparse = field_to_sparse(field) if dense else field
         rots, poss, dr, dt, est_out = [], [], [], [], []
         for i, est in enumerate(self.estimators):
             eprops = props["estimators"][i] if props is not None else None
             extra = {} if draws[i] is None else {"fit_idx": draws[i]}
             r, t, st = est.estimate(
-                est_states[i], sparse, self.camera, props=eprops, dense=True, **extra
+                est_states[i], sparse, self.camera, props=eprops, dense=dense, **extra
             )
             poss.append(pos[i] + quat.rotate_vec(rot[i], t))
             rots.append(quat.mul(r, rot[i]))
@@ -161,36 +179,40 @@ class StreamPipeline:
         detection = None
         if self.detector is not None:
             dprops = props["detector"] if props is not None else None
-            if self.detector.detect_field is not None:
-                detection = self.detector.detect_field(grid, props=dprops)
+            if dense and self.detector.detect_field is not None:
+                detection = self.detector.detect_field(field, props=dprops)
             else:
                 detection = self.detector.detect(sparse, props=dprops)
         return tuple(rots), tuple(poss), tuple(dr), tuple(dt), tuple(est_out), detection
 
-    def _run_consumers(self, state: StreamState, grid, draws, props):
+    def _run_consumers(self, state: StreamState, field, draws, props):
         """:meth:`_consume`, replayed as a CUDA graph on CUDA.
 
         Eagerly the estimators' LSQ loops and RANSAC stages are 20-31k small
         launches a step, so the step is bound by the host launching them; a
-        graph replays the same kernels in one launch.  The graph is
-        captured per (input shapes, props): the grid, the integrated poses,
-        the draws (a tensor or a tuple of tensors per estimator) and the
-        estimators' carries are its static inputs, and the new carries come
-        out with the other outputs.  It runs eagerly on the CPU, and where a
-        prop is not a plain number (a graph could not see it change).
+        graph replays the same kernels in one launch.  A graph is captured
+        per input kind (grid or sparse flow), shapes and dtypes, and set of
+        prop names: the field, the integrated poses, the draws (a tensor or
+        a tuple of tensors per estimator), the estimators' carries and the
+        props' values (0-d float32 tensors) are its static inputs, so a new
+        prop value is a copy, not a new graph.  The new carries come out
+        with the other outputs.  It runs eagerly on the CPU, and where a
+        prop is neither a number nor a 0-d tensor.
         """
-        key = _props_key(props)
-        if self.device.type != "cuda" or key is None:
+        names, values = (_prop_tensors(props, self.device) if self.device.type == "cuda"
+                         else (None, None))
+        if names is None:
             self.eager_runs += 1
-            return self._consume(state.est, state.rot, state.pos, grid, draws, props)
-        tree = (tuple(state.rot), tuple(state.pos), tuple(draws), tuple(state.est))
-        inputs = (grid,) + tuple(_leaves(tree))
-        gkey = (tuple(tuple(x.shape) for x in inputs), key)
+            return self._consume(state.est, state.rot, state.pos, field, draws, props)
+        tree = (field, tuple(state.rot), tuple(state.pos), tuple(draws), tuple(state.est),
+                values)
+        inputs = tuple(_leaves(tree))
+        gkey = (type(field).__name__, tuple((tuple(x.shape), x.dtype) for x in inputs), names)
         if gkey not in self._graphs:
 
             def fn(*xs):
-                rot, pos, d, est = _rebuild(tree, iter(xs[1:]))
-                return self._consume(est, rot, pos, xs[0], d, props)
+                f, rot, pos, d, est, vals = _rebuild(tree, iter(xs))
+                return self._consume(est, rot, pos, f, d, _props_from(names, vals))
 
             self._graphs[gkey] = _CapturedCall(fn, inputs)
         self.graph_replays += 1
@@ -262,6 +284,37 @@ class StreamPipeline:
             delta_tr=dt, detection=detection,
         )
 
+    def step_from_flow(
+        self, state: StreamState, sparse: SparseFlow,
+        generator: Optional[torch.Generator] = None, props=None, draws=None,
+    ) -> Tuple[StreamState, StreamOutputs]:
+        """Step from decoder-provided motion vectors (the codec-MV / .mvec
+        path): ``sparse`` is a (B, N) :class:`SparseFlow` on the pipeline's
+        device whose mask marks the valid entries.  The estimators run
+        masked RANSAC (``dense=False``) and the detector its sparse
+        ``detect``; an all-masked stream gets identity deltas, so its pose
+        holds.  ``draws``: optional per-estimator random inputs in place of
+        drawing them from ``generator``, uniforms that the estimators map to
+        valid points (almeida (B, 200, 3), homography (B, 91, 4), multiview
+        (B, 218, 5), libmv a pair of (B, 512, 7) at their defaults); parity
+        tests inject JAX's.  ``flow`` and ``grid`` come out empty,
+        (B, 0, 0, 2)."""
+        if sparse.mask.device.type != self.device.type:
+            raise ValueError(f"flow on {sparse.mask.device}, pipeline on {self.device}")
+        lead = sparse.mask.shape[:-1]
+        if draws is None:
+            draws = tuple(
+                None if est.draw is None
+                else est.draw(generator, lead, sparse.capacity, self.device, dense=False)
+                for est in self.estimators
+            )
+        rot, pos, dr, dt, est, detection = self._run_consumers(state, sparse, draws, props)
+        empty = torch.zeros(lead + (0, 0, 2), device=self.device)
+        return state._replace(rot=rot, pos=pos, est=est), StreamOutputs(
+            flow=empty, grid=empty, rot=rot, pos=pos, delta_rot=dr, delta_tr=dt,
+            detection=detection,
+        )
+
     def scan_frames(
         self, state: StreamState, grays: torch.Tensor,
         generator: Optional[torch.Generator] = None,
@@ -274,18 +327,58 @@ class StreamPipeline:
             outs.append(out)
         return state, outs
 
+    def scan_flow(
+        self, state: StreamState, sparse_seq: SparseFlow,
+        generator: Optional[torch.Generator] = None, draws=None,
+    ) -> Tuple[StreamState, List[StreamOutputs]]:
+        """Process a (T, B, N) :class:`SparseFlow` sequence in order;
+        returns the final state and the per-frame outputs.  ``draws``:
+        optional per-frame list of :meth:`step_from_flow`'s ``draws``."""
+        outs = []
+        for t in range(sparse_seq.mask.shape[0]):
+            flow = SparseFlow(sparse_seq.pos[t], sparse_seq.motion[t], sparse_seq.mask[t])
+            state, out = self.step_from_flow(
+                state, flow, generator, draws=None if draws is None else draws[t])
+            outs.append(out)
+        return state, outs
 
-def _props_key(props):
-    """Hashable form of plain-number props (None when a value is not a
-    plain number, e.g. a tensor a graph could not see change)."""
+
+def _prop_tensors(props, device):
+    """(names, values) of ``props``: its structure (the sorted prop names of
+    each estimator, then the detector's) and its values as 0-d float32
+    tensors on ``device``, in that order; ((), ()) for None, and (None,
+    None) when a value is neither a number nor a 0-d tensor."""
     if props is None:
-        return ()
-    items = [tuple(sorted(d.items())) for d in props["estimators"]]
-    items.append(tuple(sorted(props["detector"].items())))
-    flat = [v for group in items for _, v in group]
-    if not all(isinstance(v, (int, float)) for v in flat):
+        return (), ()
+    groups = (*props["estimators"], props["detector"])
+    names = tuple(tuple(sorted(g)) for g in groups)
+    values = []
+    for g, ns in zip(groups, names):
+        for n in ns:
+            v = g[n]
+            if isinstance(v, torch.Tensor) and v.dim() == 0:
+                values.append(v.to(device, torch.float32))
+            elif isinstance(v, (int, float)) and not isinstance(v, bool):
+                values.append(_device_scalar(float(v), str(device)))
+            else:
+                return None, None
+    return names, tuple(values)
+
+
+@functools.lru_cache(maxsize=256)
+def _device_scalar(value: float, device: str) -> torch.Tensor:
+    """A 0-d float32 tensor of ``value`` on ``device``, made once (a graph
+    replay copies from it; nothing writes to it)."""
+    return torch.tensor(value, dtype=torch.float32, device=device)
+
+
+def _props_from(names, values):
+    """The props dict of :func:`_prop_tensors`' (names, values)."""
+    if not names:
         return None
-    return tuple(items)
+    it = iter(values)
+    groups = [{n: next(it) for n in ns} for ns in names]
+    return {"estimators": tuple(groups[:-1]), "detector": groups[-1]}
 
 
 def _broadcast_state(x, batch: int, device):

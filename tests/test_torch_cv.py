@@ -132,7 +132,7 @@ def test_port_encoder_writes_the_same_clip(clip, tmp_path):
     assert a.process_frame() is None and b.process_frame() is None
     a.close()
     b.close()
-    assert available_decoders() == ["av", "cv"]
+    assert available_decoders() == ["av", "cv", "mvec"]
 
 
 def test_entry_points_default_to_cuda(clip):

@@ -129,3 +129,92 @@ def test_geometry_planes_match():
     st = tgeo.solve3_planes(tuple(map(_t, a)), tuple(map(_t, b)))
     for g, r in zip(st, sj):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-4, atol=1e-5)
+
+
+# -- the codec-MV path's motion layer ----------------------------------------
+#
+# Three fills of a grid: a tenth of the cells hold vectors, none do, every
+# cell does.  On a 24x18 grid (432 cells: the one-hot accumulation) and a
+# 40x30 grid (1,200 cells: scatter_add).  Tolerance TOL (1e-6), and equal
+# where the result is exact (from_arrays, the filled-cell pattern).
+
+FILLS = {"tenth": 0.1, "empty": 0.0, "full": 1.0}
+
+
+def _fill_flow(fill, w, h, seed=7):
+    """Flow entries on ``fill`` of the (w, h) cells (1-3 each, jittered
+    within the cell), plus masked entries anywhere."""
+    rng = np.random.default_rng(seed)
+    cells = np.flatnonzero(rng.uniform(size=w * h) < fill) if fill < 1 else np.arange(w * h)
+    reps = rng.integers(1, 4, len(cells))
+    c = np.repeat(cells, reps)
+    cell_xy = np.stack([c % w / (w - 1), c // w / (h - 1)], -1)
+    pos = cell_xy + rng.uniform(-0.4, 0.4, (len(c), 2)) / (np.array([w, h]) - 1)
+    junk = rng.uniform(0, 1, (50, 2))
+    pos = np.concatenate([pos, junk]).astype(np.float32)
+    mot = rng.normal(0, 0.02, pos.shape).astype(np.float32)
+    mask = np.concatenate([np.ones(len(c)), np.zeros(len(junk))]).astype(np.float32)
+    return pos, mot, mask
+
+
+def test_from_arrays_pads_and_truncates():
+    rng = np.random.default_rng(8)
+    pos, mot = rng.uniform(size=(2, 50, 2)).astype(np.float32)
+    for n, cap in ((50, 64), (50, 20), (0, None), (50, None)):
+        got = tmo.SparseFlow.from_arrays(pos[:n], mot[:n], cap, device="cpu")
+        ref = jmo.SparseFlow.from_arrays(pos[:n], mot[:n], cap)
+        assert got.capacity == ref.capacity
+        assert float(got.count()) == float(ref.count())
+        for g, r in zip(got, ref):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+
+@pytest.mark.parametrize("fill", list(FILLS))
+@pytest.mark.parametrize("w,h", [(24, 18), (40, 30)])
+def test_densify_fill_blur_match(fill, w, h):
+    pos, mot, mask = _fill_flow(FILLS[fill], w, h)
+    jflow = jmo.SparseFlow(jnp.asarray(pos), jnp.asarray(mot), jnp.asarray(mask))
+    tflow = tmo.SparseFlow(_t(pos), _t(mot), _t(mask))
+    ref = np.asarray(jmo.densify(jflow, w, h))
+    got = tmo.densify(tflow, w, h)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=TOL)
+
+    jd = jmo.Densifier.zeros(w, h).add_flow(jflow)
+    td = tmo.Densifier.zeros(w, h).add_flow(tflow)
+    assert td.shape == jd.shape == (w, h)
+    ji, ti = jd.interpolate_empty_cells(), td.interpolate_empty_cells()
+    np.testing.assert_array_equal((ti.counts > 0.1).numpy(), np.asarray(ji.counts > 0.1))
+    np.testing.assert_allclose(ti.counts.numpy(), np.asarray(ji.counts), rtol=1e-6, atol=TOL)
+    filled = ti.finalize()
+    np.testing.assert_allclose(filled.numpy(), np.asarray(ji.finalize()), rtol=0, atol=TOL)
+    if fill != "empty":
+        assert bool((ti.counts > 0.1).all())  # every hole reached
+
+    np.testing.assert_allclose(
+        tmo.gaussian_blur(filled, 11).numpy(),
+        np.asarray(jmo.gaussian_blur(jnp.asarray(filled.numpy()), 11)), rtol=0, atol=TOL)
+    gw, gh = w // 3, h // 4
+    np.testing.assert_allclose(
+        tmo.grid_downsample_field(filled, gw, gh).numpy(),
+        np.asarray(jmo.grid_downsample_field(jnp.asarray(filled.numpy()), gw, gh)),
+        rtol=0, atol=TOL)
+
+
+def test_onehot_accumulation_is_blockwise_and_batched():
+    """Across several point blocks, batched streams accumulate as each
+    stream alone does (the one-hot sums run per stream, block by block)."""
+    rng = np.random.default_rng(9)
+    n = 2 * tmo.ONEHOT_BLOCK + 100
+    pos = rng.uniform(0, 1, (3, n, 2)).astype(np.float32)
+    mot = rng.normal(0, 0.01, (3, n, 2)).astype(np.float32)
+    mask = (rng.uniform(size=(3, n)) > 0.3).astype(np.float32)
+    flow = tmo.SparseFlow(_t(pos), _t(mot), _t(mask))
+    got = tmo.Densifier.zeros(14, 14, (3,)).add_flow(flow)
+    for b in range(3):
+        one = tmo.Densifier.zeros(14, 14).add_flow(tmo.SparseFlow(flow.pos[b], flow.motion[b],
+                                                                  flow.mask[b]))
+        assert torch.equal(got.counts[b], one.counts) and torch.equal(got.sums[b], one.sums)
+        ref = jmo.Densifier.zeros(14, 14).add_flow(
+            jmo.SparseFlow(jnp.asarray(pos[b]), jnp.asarray(mot[b]), jnp.asarray(mask[b])))
+        np.testing.assert_allclose(one.finalize().numpy(), np.asarray(ref.finalize()),
+                                   rtol=0, atol=TOL)

@@ -301,8 +301,9 @@ def test_graphed_consumers_match_eager_on_cuda(names):
     """On the card the consumers replay as a CUDA graph; the replay runs
     the same kernels as the eager call on the same inputs, so the outputs
     are equal, over two consecutive steps so that libmv's carry passes
-    through the graph.  A changed plain-number prop (homography's
-    max_error) is a new graph."""
+    through the graph.  Props are static inputs of the graph (0-d device
+    tensors): passing them is one new graph, and a changed value
+    (homography's max_error) replays it."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
@@ -334,8 +335,9 @@ def test_graphed_consumers_match_eager_on_cuda(names):
     if "homography" in names:
         props = tp.dyn_props()
         i = names.index("homography")
-        props["estimators"][i]["max_error"] = 0.004
-        graphed = tp._run_consumers(state, out.grid, draws, props)
-        eager = tp._consume(state.est, state.rot, state.pos, out.grid, draws, props)
-        assert len(tp._graphs) == 2
-        assert torch.equal(graphed[2][i], eager[2][i])
+        for max_error in (0.004, 0.002):
+            props["estimators"][i]["max_error"] = max_error
+            graphed = tp._run_consumers(state, out.grid, draws, props)
+            eager = tp._consume(state.est, state.rot, state.pos, out.grid, draws, props)
+            assert len(tp._graphs) == 2
+            assert torch.equal(graphed[2][i], eager[2][i])
