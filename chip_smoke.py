@@ -64,7 +64,21 @@ Phases, each printing its own line; any failure exits non-zero:
    step sees with no new graph; times ``step_from_flow`` at B=1, 4, 8
    (almeida + homography) and B=8 (all four), the upload and the live
    step, with the consumers' kernels per replay;
-9. timing: ms/step of the serving step at B=1, 4, 8, of the all-estimator
+9. apps: the command line (``ofps_torch.apps.cli.main``) and the
+   single-stream apps on one ``codec_fixture`` stream (B=1, capacity
+   16,384): ``run-config`` tracking with all four estimators (the stats
+   and keyframe CSVs, each estimator's GT error within ``CODEC_GT_DEG``,
+   finite poses, one graph capture and one replay per frame, a
+   ``props_hook`` change that reaches its frame and no other, ms per
+   frame); ``run-config`` detection on a stream whose block of vectors
+   moves on some frames (its ranges equal to the port's on the CPU and to
+   the fixture's); ``flow-extract`` at 150x84 (each ``.flo`` within
+   ``FLO_TOL`` of the CPU's); ``watch`` for 8 frames on an ephemeral port
+   (``/state.json`` over loopback, then the server shut down);
+   ``bench-e2e`` over the fixture at 8 streams; and ``dense_flow_stream``
+   at 1080p, B=4, 6 frames (its flow launches per step, bit-equal to the
+   chained ``dense_flow_warm``, the 3 px pan, ms per frame);
+10. timing: ms/step of the serving step at B=1, 4, 8, of the all-estimator
    step at B=8 and of the cv step for both algorithms, kernel and plain
    paths; the consumers' graph at B=4 with almeida alone, homography alone
    and both, and at B=8 with multiview alone, libmv alone and all four,
@@ -84,6 +98,7 @@ from __future__ import annotations
 import inspect
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -156,6 +171,25 @@ CODEC_GT_DEG = 0.05
 CODEC_CPU_FRAMES = 6
 CODEC_FIELD_TOL = 1e-6
 CODEC_ROT_DEG = 1e-4
+
+# The "apps" phase: the command line and the single-stream apps on one
+# codec_fixture stream (B=1, capacity 16,384, all four estimators).  A
+# props_hook sets almeida's inlier angle to 0 before frame APPS_HOOK_FRAME:
+# no point passes, so that frame's almeida delta is the identity, and the
+# frames before it equal the run without the hook within GRAPH_TOL.  The
+# detection stream: a block of DET_BLOCK of the lattice moves DET_SHIFT_PX
+# on the frames of DET_MOVING (inclusive ranges), the rest of the lattice
+# jitters by under a quarter pel.  flow-extract on the card against the
+# port on the CPU within FLO_TOL px (scatter_add's atomics sum in any
+# order).  dense_flow_stream at 1080p, B=4, over STREAM_FRAMES frames.
+APPS_HOOK_FRAME = 12
+DET_BLOCK = (0.3, 0.7)
+DET_SHIFT_PX = 12.0
+DET_MOVING = ((4, 9), (13, 20))
+DET_SETTINGS = {"max_frame_gap": 2, "min_frames": 3}
+FLO_TOL = 1e-5
+WATCH_FRAMES = 8
+STREAM_FRAMES = 6
 
 # Roofline of one H100 SXM (published, dense, at 700 W): HBM3 bytes/s and
 # float32 operations/s outside the tensor cores.
@@ -1014,6 +1048,306 @@ def run_codec(torch, device, counters, smi):
             "host_split": res.perf.summary(), "launches": launches}
 
 
+def detection_fixture(path: Path, frames: int = CODEC_FRAMES, seed: int = SEED + 21) -> None:
+    """A ``.mvec`` stream on the 1080p macroblock lattice: frame 0 empty,
+    then every block jittering by under a quarter pel, and the blocks of
+    the DET_BLOCK square moving DET_SHIFT_PX right on the frames of
+    DET_MOVING."""
+    import numpy as np
+
+    from ofps_torch.decoders.mvec import write_mvec_frame
+
+    rng = np.random.default_rng(seed)
+    xs = (np.arange(W // 16) * 16 + 8) / W
+    ys = (np.arange(-(-H // 16)) * 16 + 8) / H
+    lattice = np.stack(np.meshgrid(xs, ys), -1).reshape(-1, 2).astype(np.float32)
+    lo, hi = DET_BLOCK
+    block = ((lattice >= lo) & (lattice <= hi)).all(-1)
+    with open(path, "wb") as f:
+        write_mvec_frame(f, np.zeros((0, 2)), np.zeros((0, 2)))
+        for t in range(1, frames):
+            motion = rng.uniform(-0.2, 0.2, lattice.shape) / (W, H)
+            if any(a <= t <= b for a, b in DET_MOVING):
+                motion[block, 0] += DET_SHIFT_PX / W
+            write_mvec_frame(f, lattice, motion.astype(np.float32))
+
+
+def run_apps(torch, device, counters, smi):
+    """The "apps" phase: the command line (``ofps_torch.apps.cli.main``)
+    and the single-stream apps on the card, at one 1080p codec stream's
+    density, and ``dense_flow_stream`` at 1080p, B=4.  Returns its
+    timings and the stream's kernel launches."""
+    import contextlib
+    import csv
+    import io
+    import tempfile
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+
+    from ofps_torch.apps import cli
+    from ofps_torch.apps import gt as gtmod
+    from ofps_torch.apps.tracking import run_tracking
+    from ofps_torch.apps.watch import run_watch
+    from ofps_torch.decoders.flo import read_flo
+    from ofps_torch.ops.flow_pyramid import (
+        FlowParams, dense_flow_stream, dense_flow_warm, frame_cache)
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (mvec,), (gt,), counts = codec_fixture(torch, tmp, streams=1, frames=CODEC_FRAMES)
+
+        def write(name, obj):
+            (tmp / name).write_text(json.dumps(obj))
+            return str(tmp / name)
+
+        def rows(name):
+            return list(csv.reader(io.StringIO((tmp / name).read_text())))
+
+        # run-config tracking, all four, through the command line.
+        tracking = {
+            "app": "tracking", "decoder": {"input": mvec}, "camera_aspect": W / H,
+            "camera_fov_y": CODEC_FOV_Y, "estimators": [{"name": n} for n in ALL4],
+            "ground_truth": gt,
+            "output": {"stats_csv_prefix": str(tmp / "stats_"), "perf_csv": str(tmp / "perf.csv"),
+                       "keyframes_prefix": str(tmp / "kf_")},
+        }
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            rc = cli.main(["run-config", write("tracking.json", tracking)])
+        lines = said.getvalue().strip().splitlines()
+        stats = {n: rows(f"stats_{n}.csv") for n in ALL4}
+        header = ["frame", "delta", "delta_r", "delta_p", "delta_y", "r", "p", "y", "error",
+                  "error_r", "error_p", "error_y"]
+        rows_ok = all(r[0] == header and len(r) == CODEC_FRAMES + 1 for r in stats.values())
+        csv_finite = all(np.isfinite(np.float64([v for row in r[1:] for v in row])).all()
+                         for r in stats.values())
+        kf = rows("kf_almeida_keyframes.csv")
+        perf = rows("perf.csv")
+        est_ms = [float(row[perf[0].index("estimate")]) for row in perf[1:]]
+        phase("apps", f"run-config tracking ({'+'.join(ALL4)}, B=1, capacity {CODEC_CAPACITY}, "
+              f"1080p lattice, {CODEC_FRAMES} frames, {int(counts.sum())} vectors): rc {rc}; "
+              f"printed {lines}; stats CSVs {'+'.join(ALL4)} header and {CODEC_FRAMES} rows="
+              f"{rows_ok}, finite={csv_finite}; keyframes kept {len(kf) - 1}")
+        if not (rc == 0 and rows_ok and csv_finite and 2 <= len(kf) <= 11
+                and len(est_ms) == CODEC_FRAMES):
+            fail("apps: run-config tracking failed or wrote wrong files")
+
+        # The same stream through run_tracking: one capture, one replay per
+        # frame, the GT error, and a props_hook change.
+        def track(**kw):
+            return run_tracking(mvec, tracking["estimators"], W / H, CODEC_FOV_Y, **kw)
+
+        base = track()
+        truth = gtmod.load_ground_truth(gt)
+        gt_deg = {t.name: math.degrees(t.avg_err(truth)[0]) for t in base.tracks}
+        finite = all(np.isfinite(x).all() for t in base.tracks
+                     for x in (*t.poses_rot, *t.poses_pos, *t.transforms))
+        ms = [1e3 * x for x in base.perf.stages["estimate"]]
+        seen = []
+
+        def hook(frame, props):
+            seen.append(frame)
+            if frame == APPS_HOOK_FRAME:
+                props["estimators"][0]["inlier_angle_deg"].fill_(0.0)
+            return props
+
+        hooked = track(props_hook=hook)
+        before = max(float(np.abs(a - b).max()) for t, u in zip(base.tracks, hooked.tracks)
+                     for a, b in zip(t.transforms[:APPS_HOOK_FRAME], u.transforms[:APPS_HOOK_FRAME]))
+        ident = np.array([1.0, 0.0, 0.0, 0.0], np.float32)
+        at_hook = (np.array_equal(hooked.tracks[0].transforms[APPS_HOOK_FRAME], ident)
+                   and not np.array_equal(base.tracks[0].transforms[APPS_HOOK_FRAME], ident))
+        out["tracking"] = {
+            "estimate_ms_per_frame": sorted(ms[1:])[len(ms[1:]) // 2],
+            "estimate_ms_mean_after_capture": sum(ms[1:]) / len(ms[1:]),
+            "first_frame_ms": ms[0], "cli_estimate_ms_median": sorted(est_ms)[len(est_ms) // 2],
+            "cli_first_frame_ms": est_ms[0],
+            "gt_deg": gt_deg}
+        phase("apps", f"run_tracking on the same stream: graphs {base.graphs}, replays "
+              f"{base.graph_replays}, eager runs {base.eager_runs}; mean GT error deg {gt_deg} (gate {CODEC_GT_DEG}); "
+              f"poses finite={finite}; props_hook frames {seen[0]}..{seen[-1]}: inlier angle 0 "
+              f"at frame {APPS_HOOK_FRAME} -> almeida identity there={at_hook}, frames before "
+              f"it max |diff| {before:.3e}, graphs {hooked.graphs}, replays "
+              f"{hooked.graph_replays}; \"estimate\" stage ms per frame: median "
+              f"{out['tracking']['estimate_ms_per_frame']:.3f}, mean after the capture "
+              f"{out['tracking']['estimate_ms_mean_after_capture']:.3f}, first frame (capture) "
+              f"{ms[0]:.1f}; the CLI run's median {out['tracking']['cli_estimate_ms_median']:.3f}, "
+              f"its first frame (the process's first capture) {est_ms[0]:.1f} | {smi}")
+        if not (base.graphs == hooked.graphs == 1 and base.graph_replays == CODEC_FRAMES
+                and hooked.graph_replays == CODEC_FRAMES and base.eager_runs == 0
+                and hooked.eager_runs == 0):
+            fail("apps: tracking did not run one capture and one replay per frame")
+        if not (finite and max(gt_deg.values()) <= CODEC_GT_DEG):
+            fail("apps: a tracking pose is not finite, or an estimator misses the ground truth")
+        if not (seen == list(range(CODEC_FRAMES)) and at_hook and before <= GRAPH_TOL):
+            fail("apps: the props_hook change did not reach its frame alone")
+
+        # run-config detection: the card against the port on the CPU.
+        det_mvec = tmp / "det.mvec"
+        detection_fixture(det_mvec)
+        ranges = {}
+        for name, args in (("cuda", []), ("cpu", ["--device", "cpu"])):
+            det = {"app": "detection", "decoder": {"input": str(det_mvec)},
+                   "detector": {"name": "block_motion"}, "settings": DET_SETTINGS,
+                   "output": {"ranges_csv": str(tmp / f"ranges_{name}.csv"),
+                              "perf_csv": str(tmp / f"det_perf_{name}.csv")}}
+            with contextlib.redirect_stdout(io.StringIO()) as said:
+                rc = cli.main(args + ["run-config", write(f"det_{name}.json", det)])
+            ranges[name] = ((tmp / f"ranges_{name}.csv").read_text(), rc,
+                            said.getvalue().strip())
+        perf = rows("det_perf_cuda.csv")
+        det_ms = [float(row[perf[0].index("detect")]) for row in perf[1:]]
+        want = "".join(f"{a},{b}\n" for a, b in DET_MOVING)
+        out["detection"] = {"detect_ms_per_frame": sorted(det_ms[1:])[len(det_ms[1:]) // 2],
+                            "detect_ms_mean": sum(det_ms) / len(det_ms)}
+        phase("apps", f"run-config detection (block_motion, 1080p lattice, {len(det_ms)} "
+              f"frames, a {DET_BLOCK} block moving {DET_SHIFT_PX} px on frames {DET_MOVING}): "
+              f"card {ranges['cuda'][2]!r} rc {ranges['cuda'][1]}; ranges CSV equal to the "
+              f"port on the CPU={ranges['cuda'][0] == ranges['cpu'][0]}; \"detect\" stage ms "
+              f"per frame: median {out['detection']['detect_ms_per_frame']:.3f}, mean "
+              f"{out['detection']['detect_ms_mean']:.3f} | {smi}")
+        if not (ranges["cuda"][1] == ranges["cpu"][1] == 0
+                and ranges["cuda"][0] == ranges["cpu"][0] == want):
+            fail("apps: detection ranges differ from the CPU's or from the fixture's")
+
+        # flow-extract at 150x84: the card against the port on the CPU.
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc_g = cli.main(["flow-extract", mvec, str(tmp / "flo_cuda")])
+        wall_ms = (time.perf_counter() - t0) * 1e3 / CODEC_FRAMES
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc_c = cli.main(["--device", "cpu", "flow-extract", mvec, str(tmp / "flo_cpu")])
+        names = sorted(os.listdir(tmp / "flo_cuda"))
+        flo_err = max(float(np.abs(read_flo(str(tmp / "flo_cuda" / n))
+                                   - read_flo(str(tmp / "flo_cpu" / n))).max()) for n in names)
+        last = read_flo(str(tmp / "flo_cuda" / names[-1]))
+        from ofps_torch.decoders.mvec import MvecDecoder
+
+        dec = MvecDecoder(mvec)
+        dec.process_frame()
+        f1 = dec.process_frame()
+        dec.close()
+        field_ms = time_ms(torch, lambda: cli.flow_field(f1.pos, f1.motion, 150, 84,
+                                                         CODEC_CAPACITY, device), 10)
+        out["flow_extract"] = {"ms_per_frame_wall": wall_ms, "field_ms": field_ms,
+                               "max_abs_err_px": flo_err}
+        phase("apps", f"flow-extract 150x84 ({CODEC_FRAMES} frames): rc {rc_g}/{rc_c}, .flo "
+              f"files {len(names)} of {sorted(os.listdir(tmp / 'flo_cpu')) == names and len(names)}"
+              f" on the CPU; card vs CPU max |diff| {flo_err:.3e} px (gate {FLO_TOL}); field "
+              f"finite={bool(np.isfinite(last).all())}; ms per frame: {wall_ms:.3f} wall (decode, "
+              f"densify, hole fill, blur, fetch, write), densify+fill+blur alone {field_ms:.3f} "
+              f"| {smi}")
+        if not (rc_g == rc_c == 0 and len(names) == CODEC_FRAMES and flo_err <= FLO_TOL
+                and sorted(os.listdir(tmp / "flo_cpu")) == names and np.isfinite(last).all()):
+            fail("apps: flow-extract failed or disagrees with the CPU")
+
+        # watch on an ephemeral port over loopback.
+        box = []
+        watch_cfg = dict(tracking, detector={"name": "block_motion"}, output={})
+        th = threading.Thread(target=run_watch, daemon=True, kwargs=dict(
+            config=watch_cfg, port=0, max_frames=WATCH_FRAMES, _server_box=box))
+        with contextlib.redirect_stdout(io.StringIO()):
+            th.start()
+            t0 = time.perf_counter()
+            while not box and time.perf_counter() - t0 < 60:
+                time.sleep(0.05)
+            snap = None
+            if box:
+                port = box[0].server_address[1]
+                while time.perf_counter() - t0 < 120:
+                    with urllib.request.urlopen(f"http://127.0.0.1:{port}/state.json",
+                                                timeout=30) as r:
+                        snap = json.loads(r.read())
+                    if snap["done"]:
+                        break
+                    time.sleep(0.1)
+                box[0].shutdown()
+                box[0].server_close()
+            th.join(timeout=60)
+        refused = False
+        if box:
+            try:
+                urllib.request.urlopen(f"http://127.0.0.1:{port}/state.json", timeout=5)
+            except (urllib.error.URLError, ConnectionError):
+                refused = True
+        ests = (snap or {}).get("estimators", [])
+        watch_ok = bool(snap and snap["done"] and snap["frame"] == WATCH_FRAMES - 1
+                        and [e["name"] for e in ests] == list(ALL4)
+                        and all(np.isfinite(e["euler_deg"]).all() for e in ests)
+                        and snap["detected"] in (True, False))
+        phase("apps", f"watch {WATCH_FRAMES} frames ({'+'.join(ALL4)} + block_motion) on port "
+              f"{port if box else None}: /state.json frame {snap and snap['frame']}, estimators "
+              f"{[e['name'] for e in ests]}, eulers {[e['euler_deg'] for e in ests]}, detected "
+              f"{snap and snap['detected']}; server shut down={refused and not th.is_alive()}")
+        if not (watch_ok and refused and not th.is_alive()):
+            fail("apps: watch did not serve the frames or did not shut down")
+
+        # bench-e2e over the fixture stream, 8 streams.
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            rc = cli.main(["bench-e2e", "--input", mvec, "--streams", str(CODEC_STREAMS),
+                           "--width", str(W), "--height", str(H)])
+        line = said.getvalue().strip().splitlines()[-1]
+        rec = json.loads(line)
+        out["bench_e2e"] = rec
+        phase("apps", f"bench-e2e --input <fixture>.mvec --streams {CODEC_STREAMS} (almeida + "
+              f"homography + block_motion, fetch lag 8): {line} | {smi}")
+        if not (rc == 0 and rec["frames"] == CODEC_FRAMES and rec["streams"] == CODEC_STREAMS
+                and rec["value"] > 0):
+            fail("apps: bench-e2e failed or ran the wrong steps")
+
+    # dense_flow_stream at 1080p, B=4: the carry against the chained form.
+    batch = 4
+    frames = moving_frames(torch, STREAM_FRAMES, batch, H, W, device)
+    params = FlowParams()
+
+    def stream():
+        flows, carry = [], None
+        for f in frames:
+            flow, carry = dense_flow_stream(f, params, carry)
+            flows.append(flow)
+        return flows, carry
+
+    (flows, carry), launches = count_launches(torch, counters, stream)
+    launches = {k: launches[k] for k in ("flow_refine", "flow_refine_small", "guard_select",
+                                         "median3x3_uv")}
+    check_per_step("dense_flow_stream", launches, {
+        "flow_refine": 4, "flow_refine_small": 3, "median3x3_uv": 4})
+    same = True
+    warm, cache = tuple(torch.zeros_like(x) for x in carry.warm), frame_cache(frames[0], params)
+    for t in range(1, STREAM_FRAMES):
+        (u, v), warm, cache = dense_flow_warm(frames[t - 1], frames[t], params, warm=warm,
+                                              prev_cache=cache)
+        same &= bool(torch.equal(u, flows[t][0]) and torch.equal(v, flows[t][1]))
+    same &= all(bool(torch.equal(a, b)) for a, b in zip(warm, carry.warm))
+    first_zero = not (flows[0][0].any() or flows[0][1].any())
+    med = flows[-1][0][:, 64:-64, 64:-64].median().item()
+    mid = (frames[1], dense_flow_stream(frames[0], params)[1])
+    stream_ms = time_ms(torch, lambda: dense_flow_stream(mid[0], params, mid[1]), 10)
+    chain_ms = time_ms(torch, lambda: dense_flow_warm(
+        frames[0], frames[1], params, warm=mid[1].warm, prev_cache=mid[1].cache), 10)
+    cold_ms = time_ms(torch, lambda: dense_flow_warm(
+        frames[0], frames[1], params, warm=mid[1].warm), 10)
+    stream_dev = device_ms(torch, lambda: dense_flow_stream(mid[0], params, mid[1]))
+    out["dense_flow_stream"] = {"ms_per_step": stream_ms, "ms_per_frame": stream_ms / batch,
+                                "device_ms_per_step": stream_dev,
+                                "chained_ms_per_step": chain_ms,
+                                "chained_without_cache_ms_per_step": cold_ms,
+                                "launches": launches}
+    phase("apps", f"dense_flow_stream 1080p B={batch} {STREAM_FRAMES} frames: launches "
+          f"{launches}; bit-equal to the chained dense_flow_warm={same}; first call zeros="
+          f"{first_zero}; interior median u {med:.4f} px (expect {SHIFT}); {stream_ms:.3f} "
+          f"ms/step ({stream_ms / batch:.3f} ms/frame; device alone, a CUDA graph of 20 steps, "
+          f"{stream_dev:.3f} ms/step), chained dense_flow_warm with the cache "
+          f"{chain_ms:.3f} ms/step, without it (the previous pyramid rebuilt) {cold_ms:.3f} "
+          f"ms/step | {smi}")
+    if not (same and first_zero and abs(med - SHIFT) <= 0.1 and math.isfinite(stream_dev)):
+        fail("apps: dense_flow_stream differs from the chain, or the pan is not recovered")
+    return out, launches
+
+
 def consumer_kernels(torch, pipe, state, grid, draws):
     """CUDA kernels and their summed device ms in one eager ``_consume``
     (the calls its CUDA graph replays), from ``torch.profiler``; (None,
@@ -1252,7 +1586,11 @@ def main() -> None:
     launches_by_path["codec"] = codec.pop("launches")
     torch.cuda.empty_cache()
 
-    # 9. timing
+    # 9. the command line and the single-stream apps, and dense_flow_stream.
+    apps, launches_by_path["dense_flow_stream"] = run_apps(torch, device, counters, smi)
+    torch.cuda.empty_cache()
+
+    # 10. timing
     from ofps_torch.decoders.cv import CvFlowStep
     from ofps_torch.ops.flow_pyramid import dense_flow_warm
 
@@ -1403,7 +1741,7 @@ def main() -> None:
         "step_config": "+block_motion, ".join(["+".join(ESTIMATORS), "+".join(ALL4)]) + "+block_motion",
         "consumers_ms": consumers_ms,
         "consumer_kernels": consumer_kernel_counts,
-        "cv_step_ms": cv_ms, "codec": codec, "card": smi}))
+        "cv_step_ms": cv_ms, "codec": codec, "apps": apps, "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

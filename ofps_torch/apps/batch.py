@@ -38,7 +38,7 @@ class BatchResult:
     poses_rot: List[np.ndarray]  # per estimator: (B, 4) final integrated
     poses_pos: List[np.ndarray]
     detections: Optional[np.ndarray]  # (T, B) bool, if a detector ran
-    perf: PerfStats  # stages "decode", "upload", "step", "fetch" (host clock)
+    perf: PerfStats  # stages "decode", "upload" (pack + copy), "step", "fetch" (host clock)
     # (T, B) bool: stream had a live frame at step t (False once ended,
     # when drop_ended keeps the batch going).
     active: Optional[np.ndarray] = None
@@ -240,8 +240,11 @@ def run_batch(
                         )
                     break
                 active_hist.append(live)
-                vectors.append(uploader.pack(batch))
+            # The pack waits until its buffer's previous copy is done, so it
+            # is the upload's cost (and the card's back-pressure), not the
+            # decode's: "decode" is only the wait on the decoder feeds.
             with perf.time("upload"):
+                vectors.append(uploader.pack(batch))
                 flow = uploader.upload()
             with perf.time("step"):
                 state, out = pipe.step_from_flow(state, flow, generator)

@@ -9,7 +9,7 @@ are tiny and built in float32 on the CPU; callers move them where needed.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -112,3 +112,38 @@ class StandardCamera(NamedTuple):
         k[1, 1], k[1, 2] = fy, 0.5
         k[2, 2] = 1.0
         return k
+
+    def point_angle(self, p: torch.Tensor) -> torch.Tensor:
+        """Per-axis angular position of screen points (..., 2), radians."""
+        fx, fy = self.point_angle_focals()
+        f = torch.stack([fx, fy]).to(p.device)
+        return torch.atan((p - 0.5) / f)
+
+    def fov(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Horizontal and vertical field of view in degrees (float32)."""
+        ty = torch.tan(torch.deg2rad(_f32(self.fov_y_deg)) * 0.5)
+        tx = _f32(self.aspect) * ty
+        return torch.rad2deg(torch.atan(tx)) * 2.0, _f32(self.fov_y_deg)
+
+    def essential(self, f: torch.Tensor) -> torch.Tensor:
+        """Essential matrix ``K^T F K`` of fundamental matrices (..., 3, 3)."""
+        k = self.intrinsics().to(f.device)
+        return k.T @ f @ k
+
+
+def look_at_rh(eye, target, up) -> torch.Tensor:
+    """Right-handed look-at view matrices (..., 4, 4) (gluLookAt) from
+    ``eye``, ``target`` and ``up`` (..., 3)."""
+    eye, target, up = (_f32(x) for x in (eye, target, up))
+    fwd = target - eye
+    fwd = fwd / torch.linalg.vector_norm(fwd, dim=-1, keepdim=True)
+    s = torch.linalg.cross(fwd, up.expand_as(fwd))
+    s = s / torch.linalg.vector_norm(s, dim=-1, keepdim=True)
+    u = torch.linalg.cross(s, fwd)
+    rot = torch.stack([s, u, -fwd], dim=-2)
+    trans = -(rot @ eye[..., None])[..., 0]
+    m = torch.zeros(rot.shape[:-2] + (4, 4), dtype=torch.float32, device=rot.device)
+    m[..., :3, :3] = rot
+    m[..., :3, 3] = trans
+    m[..., 3, 3] = 1.0
+    return m

@@ -11,6 +11,7 @@ device, :mod:`ofps_torch.decoders.cv`); modules named in
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Callable, Dict, Optional, Protocol, Tuple
 
 import numpy as np
@@ -71,16 +72,22 @@ def _load_builtin_decoders() -> None:
     load_external_plugins()
 
 
-def create_decoder(input_path: str, plugin: Optional[str] = None, **kwargs) -> Decoder:
+def create_decoder(input_path: str, plugin: Optional[str] = None, device=None,
+                   **kwargs) -> Decoder:
     """The decoder named ``plugin`` over ``input_path``: with no plugin
     named, the "mvec" replay reader for a ``.mvec`` path and "av" for any
-    other."""
+    other.  ``device``, when given, goes to a decoder whose factory takes
+    one (the "cv" decoder computes its flow there); host decoders ignore
+    it."""
     _load_builtin_decoders()
     if plugin is None:
         plugin = "mvec" if input_path.endswith(".mvec") else "av"
     if plugin not in _REGISTRY:
         raise KeyError(f"unknown decoder {plugin!r}; have {sorted(_REGISTRY)}")
-    return _REGISTRY[plugin](input_path, **kwargs)
+    factory = _REGISTRY[plugin]
+    if device is not None and "device" in inspect.signature(factory).parameters:
+        kwargs.setdefault("device", device)
+    return factory(input_path, **kwargs)
 
 
 def available_decoders():

@@ -43,12 +43,21 @@ def register(name: str):
     return deco
 
 
-def create_detector(name: str, **kwargs) -> DetectorInstance:
+def _load_builtin_detectors() -> None:
     from ofps_torch.core.plugins import load_external_plugins
 
     for mod in _BUILTIN:
         importlib.import_module(f"ofps_torch.detectors.{mod}")
     load_external_plugins()
+
+
+def available_detectors():
+    _load_builtin_detectors()
+    return sorted(_REGISTRY)
+
+
+def create_detector(name: str, **kwargs) -> DetectorInstance:
+    _load_builtin_detectors()
     if name not in _REGISTRY:
         raise KeyError(f"unknown detector {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name](**kwargs)

@@ -212,7 +212,8 @@ def make_almeida(**kwargs) -> EstimatorInstance:
     params = AlmeidaParams(**kwargs)
 
     def estimate(state, flow: SparseFlow, camera, generator=None, props=None,
-                 dense=False, fit_idx=None):
+                 dense=False, fit_idx=None, move_magnitude=None):
+        # ``move_magnitude`` is accepted and unused, as in the reference.
         inlier_deg = (props or {}).get("inlier_angle_deg", params.inlier_angle_deg)
         if params.use_ransac:
             rot = solve_ypr_ransac(

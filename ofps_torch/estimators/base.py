@@ -4,7 +4,8 @@
 An :class:`EstimatorInstance` carries static ``params``, ``init()`` (the
 carried state; stateless estimators use ``()``) and
 ``estimate(state, flow, camera, generator=None, props=None, dense=False,
-fit_idx=None) -> (quat (B, 4), translation (B, 3), state)`` over a batch of
+fit_idx=None, move_magnitude=None) -> (quat (B, 4), translation (B, 3),
+state)`` over a batch of
 B sparse flows.  An estimator that samples may also provide ``draw``: its
 random inputs drawn ahead of ``estimate`` (passed back as ``fit_idx``), so
 that ``estimate`` itself is a fixed sequence of device operations, dense
@@ -54,11 +55,16 @@ class EstimatorInstance:
     draw: Optional[Callable[..., Any]] = None
 
     def motion_step(self, state, flow, camera, rot, pos, generator=None,
-                    props=None, dense=False):
+                    move_magnitude=None, props=None, dense=False, fit_idx=None):
         """Estimate and integrate: ``pos += rot * tr; rot = r * rot``.
-        Returns (rot, pos, state)."""
+        Returns (rot, pos, state).  ``move_magnitude`` is the optional
+        translation-magnitude hint (None: unhinted); only libmv uses it.
+        ``fit_idx``: the estimator's draws in place of drawing them from
+        ``generator``.  Both are passed on only when given."""
+        extra = {k: v for k, v in (("move_magnitude", move_magnitude), ("fit_idx", fit_idx))
+                 if v is not None}
         r, tr, state = self.estimate(
-            state, flow, camera, generator, props=props, dense=dense
+            state, flow, camera, generator, props=props, dense=dense, **extra
         )
         return quat.mul(r, rot), pos + quat.rotate_vec(rot, tr), state
 

@@ -132,7 +132,8 @@ def make_homography(**kwargs) -> EstimatorInstance:
     h_count = hypothesis_count(params)
 
     def estimate(state, flow: SparseFlow, camera, generator=None, props=None,
-                 dense=False, fit_idx=None):
+                 dense=False, fit_idx=None, move_magnitude=None):
+        # ``move_magnitude`` is accepted and unused, as in the reference.
         rot = estimate_homography_rotation(
             generator, params, flow, camera,
             max_error=(props or {}).get("max_error"), dense=dense, fit_idx=fit_idx,

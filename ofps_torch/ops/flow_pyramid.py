@@ -347,3 +347,47 @@ def dense_flow_warm(
         i1, i2, params, warm, prev_cache, grid_plan=grid_plan, plain=plain
     )
     return (u, v), warm_next, cache
+
+
+class FlowStreamCarry(NamedTuple):
+    """Carry of :func:`dense_flow_stream`: the half-resolution warm
+    ``(u, v)`` and the previous frame's :class:`FrameCache`."""
+
+    warm: Tuple[torch.Tensor, torch.Tensor]
+    cache: FrameCache
+
+
+def dense_flow_stream(
+    frame: torch.Tensor,
+    params: FlowParams = FlowParams(),
+    carry: Optional[FlowStreamCarry] = None,
+):
+    """One-frame-in streaming dense flow: returns ``((u, v), carry_next)``,
+    the flow from the previous frame to ``frame`` (float32 zeros on the
+    first call, ``carry=None``).  The carry keeps the previous frame's
+    pyramid, so each frame's pyramid is built once; the flow equals the
+    chained :func:`dense_flow_warm` on (previous, current) pairs bit for
+    bit."""
+    if carry is None:
+        h, w = frame.shape[-2], frame.shape[-1]
+        if effective_levels(params, h, w) > 1:
+            wh, ww = (h + 1) // 2, (w + 1) // 2
+        else:
+            wh, ww = h, w
+        lead = frame.shape[:-2]
+        warm = tuple(
+            torch.zeros(lead + (wh, ww), dtype=torch.float32, device=frame.device)
+            for _ in range(2)
+        )
+        zero = torch.zeros(frame.shape, dtype=torch.float32, device=frame.device)
+        return (zero, zero), FlowStreamCarry(warm=warm, cache=frame_cache(frame, params))
+    (u, v), warm, cache = dense_flow_warm(
+        carry.cache.pyr[0], frame, params, warm=carry.warm, prev_cache=carry.cache
+    )
+    return (u, v), FlowStreamCarry(warm=warm, cache=cache)
+
+
+def flow_to_normalized(flow: torch.Tensor) -> torch.Tensor:
+    """Pixel-unit flow (..., H, W, 2) -> [0, 1]-normalized units."""
+    h, w = flow.shape[-3], flow.shape[-2]
+    return flow / torch.tensor([w, h], dtype=flow.dtype, device=flow.device)

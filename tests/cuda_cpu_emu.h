@@ -1,22 +1,27 @@
 // CPU emulation of the CUDA subset used by ofps_torch/csrc, for the tests
 // in test_torch_kernels_emulated.py: the kernel sources compile with g++
-// against this header and run on CPU tensors.  One std::thread per CUDA
-// thread of a block; blocks run one after another, so a `__shared__`
-// variable (static here) is shared by the threads of the running block.
-// __syncthreads, __syncwarp and the warp shuffles are barriers between
-// those threads.  It checks the kernels' indexing, halos, passes, argmin
-// order and grid reduction; the CUDA compiler and the card stay untested.
+// against this header and run on CPU tensors.  Each CUDA thread of a block
+// is a fiber (ucontext) on the calling OS thread; blocks run one after
+// another, so a `__shared__` variable (static here) is shared by the
+// threads of the running block.  A fiber runs until it reaches
+// __syncthreads or __syncwarp (the warp shuffles sync twice), then the
+// next one runs; a barrier opens when every thread of its block or warp
+// has reached it.  One OS thread and a fixed order: a launch is
+// deterministic and does not compete for cores.  It checks the kernels'
+// indexing, halos, passes, argmin order and grid reduction; the CUDA
+// compiler and the card stay untested.
 #pragma once
 #include <math.h>
 
+#include <ucontext.h>
+
 #include <algorithm>
-#include <barrier>
 #include <cmath>
 #include <cstdint>
+#include <cstdio>
+#include <cstdlib>
 #include <cstring>
-#include <memory>
-#include <mutex>
-#include <thread>
+#include <functional>
 #include <vector>
 
 using std::max;
@@ -29,8 +34,9 @@ struct dim3 {
 struct emu_uint3 {
   unsigned x, y, z;
 };
-inline thread_local emu_uint3 threadIdx, blockIdx;
-inline thread_local int emu_tid;
+// The running fiber's indices, set before each fiber resumes.
+inline emu_uint3 threadIdx, blockIdx;
+inline int emu_tid;
 
 struct alignas(16) float4 {
   float x, y, z, w;
@@ -72,17 +78,26 @@ inline float __bfloat162float(__nv_bfloat16 b) {
   return f;
 }
 
-inline std::barrier<>* emu_block_barrier = nullptr;
-inline std::vector<std::unique_ptr<std::barrier<>>> emu_warp_barriers;
+enum { EMU_RUNNABLE = 0, EMU_AT_BLOCK = 1, EMU_AT_WARP = 2, EMU_DONE = 3 };
+struct EmuFiber {
+  ucontext_t ctx;
+  int state = EMU_RUNNABLE;
+};
+inline ucontext_t emu_scheduler;
+inline std::vector<EmuFiber> emu_fibers;
+inline std::function<void()> emu_body;  // the kernel call of the launch
 inline char* emu_dyn_smem = nullptr;  // the block's dynamic shared memory
-inline std::mutex emu_atomic_mutex;
 inline uint64_t emu_lanes[64][32];
 
-inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
-inline void __syncwarp() { emu_warp_barriers[emu_tid / 32]->arrive_and_wait(); }
+inline void emu_wait(int state) {
+  EmuFiber& f = emu_fibers[emu_tid];
+  f.state = state;
+  swapcontext(&f.ctx, &emu_scheduler);
+}
+inline void __syncthreads() { emu_wait(EMU_AT_BLOCK); }
+inline void __syncwarp() { emu_wait(EMU_AT_WARP); }
 
 inline float atomicAdd(float* p, float v) {
-  std::lock_guard<std::mutex> lock(emu_atomic_mutex);
   const float old = *p;
   *p = old + v;
   return old;
@@ -118,33 +133,78 @@ inline unsigned __ballot_sync(unsigned, int pred) {
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 
+inline void emu_fiber_entry() {
+  emu_body();
+  emu_fibers[emu_tid].state = EMU_DONE;  // returns to uc_link, the scheduler
+}
+
+// Runs the n fibers of one block until all are done: round robin over the
+// runnable ones; when none is, the warps whose threads all wait at
+// __syncwarp are released, else, when every thread waits at
+// __syncthreads, all of them.
+inline void emu_run_block(int n, dim3 block) {
+  for (;;) {
+    bool ran = false;
+    for (int t = 0; t < n; ++t) {
+      if (emu_fibers[t].state != EMU_RUNNABLE) continue;
+      emu_tid = t;
+      threadIdx = {unsigned(t % block.x), unsigned(t / block.x % block.y),
+                   unsigned(t / (block.x * block.y))};
+      swapcontext(&emu_scheduler, &emu_fibers[t].ctx);
+      ran = true;
+    }
+    if (ran) continue;
+    int done = 0, at_block = 0;
+    bool released = false;
+    for (int w = 0; w < (n + 31) / 32; ++w) {
+      const int lo = 32 * w, hi = std::min(n, lo + 32);
+      bool all = true;
+      for (int t = lo; t < hi; ++t) all &= emu_fibers[t].state == EMU_AT_WARP;
+      if (all) {
+        for (int t = lo; t < hi; ++t) emu_fibers[t].state = EMU_RUNNABLE;
+        released = true;
+      }
+    }
+    if (released) continue;
+    for (int t = 0; t < n; ++t) {
+      done += emu_fibers[t].state == EMU_DONE;
+      at_block += emu_fibers[t].state == EMU_AT_BLOCK;
+    }
+    if (done == n) return;
+    if (at_block != n) {
+      fprintf(stderr, "cuda_cpu_emu: barrier deadlock (%d done, %d at __syncthreads of %d)\n",
+              done, at_block, n);
+      abort();
+    }
+    for (int t = 0; t < n; ++t) emu_fibers[t].state = EMU_RUNNABLE;
+  }
+}
+
 // kernel<<<grid, block, smem, stream>>>(args...) becomes
 // emu_launch(kernel, grid, block, smem, stream, args...).
 template <class K, class... A>
 void emu_launch(K kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t, A... args) {
   const int n = block.x * block.y * block.z;
-  std::barrier<> block_barrier(n);
-  emu_block_barrier = &block_barrier;
-  emu_warp_barriers.clear();
-  for (int i = 0; i < (n + 31) / 32; ++i)
-    emu_warp_barriers.emplace_back(new std::barrier<>(std::min(32, n - 32 * i)));
+  constexpr size_t kStack = 64 * 1024;
+  std::vector<char> stacks(size_t(n) * kStack);
+  emu_fibers.assign(n, EmuFiber());
+  emu_body = [&]() { kernel(args...); };
   // Unwritten shared memory reads as large floats, not zeros.
   std::vector<char> dyn(smem + 16, 0x7f);
   emu_dyn_smem = dyn.data() + (16 - reinterpret_cast<uintptr_t>(dyn.data()) % 16) % 16;
-  std::vector<std::thread> threads;
-  for (int t = 0; t < n; ++t) {
-    threads.emplace_back([&, t]() {
-      emu_tid = t;
-      threadIdx = {unsigned(t % block.x), unsigned(t / block.x % block.y),
-                   unsigned(t / (block.x * block.y))};
-      for (unsigned bz = 0; bz < grid.z; ++bz)
-        for (unsigned by = 0; by < grid.y; ++by)
-          for (unsigned bx = 0; bx < grid.x; ++bx) {
-            blockIdx = {bx, by, bz};
-            kernel(args...);
-            block_barrier.arrive_and_wait();
-          }
-    });
-  }
-  for (auto& t : threads) t.join();
+  for (unsigned bz = 0; bz < grid.z; ++bz)
+    for (unsigned by = 0; by < grid.y; ++by)
+      for (unsigned bx = 0; bx < grid.x; ++bx) {
+        blockIdx = {bx, by, bz};
+        for (int t = 0; t < n; ++t) {
+          EmuFiber& f = emu_fibers[t];
+          f.state = EMU_RUNNABLE;
+          getcontext(&f.ctx);
+          f.ctx.uc_stack.ss_sp = stacks.data() + size_t(t) * kStack;
+          f.ctx.uc_stack.ss_size = kStack;
+          f.ctx.uc_link = &emu_scheduler;
+          makecontext(&f.ctx, emu_fiber_entry, 0);
+        }
+        emu_run_block(n, block);
+      }
 }

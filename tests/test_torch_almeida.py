@@ -27,6 +27,7 @@ from ofps_tpu.core.motion import SparseFlow as JSparse
 from ofps_tpu.core.motion import field_to_sparse
 from ofps_tpu.estimators import almeida as jalm
 from ofps_tpu.ops import robust as jrob
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 QUAT_TOL = 1e-5
 JCAM = JCam.create(150 / 90, 60.0)

@@ -31,6 +31,7 @@ from ofps_tpu.apps import gt as jgt
 from ofps_tpu.core import quat as jq
 from ofps_tpu.decoders.mvec import write_mvec_frame
 from ofps_tpu.pipeline import runtime as jrt
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CAP = 4096
 GATE_DEG = 0.05

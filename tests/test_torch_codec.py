@@ -35,6 +35,7 @@ from ofps_tpu.core import properties as jprops
 from ofps_tpu.decoders import flo as jflo
 from ofps_tpu.decoders import mvec as jmvec
 from ofps_tpu.ops import robust as jrob
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _frames(seed, n=5):

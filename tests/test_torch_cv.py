@@ -28,6 +28,7 @@ from ofps_torch.decoders.base import create_decoder as t_create
 from ofps_torch.decoders.cv import CvDecoder, CvFlowStep
 from ofps_tpu.decoders.av import encode_test_video
 from ofps_tpu.decoders.base import create_decoder as j_create
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 H, W = 96, 128

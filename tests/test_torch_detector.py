@@ -18,6 +18,7 @@ from ofps_tpu.core.motion import field_to_sparse as j_field_to_sparse
 from ofps_tpu.detectors import block_motion as jbm
 from ofps_tpu.ops.components import label_components as j_label
 from ofps_tpu.ops.components import largest_component as j_largest
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _t(x):

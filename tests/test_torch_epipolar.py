@@ -25,6 +25,7 @@ from ofps_torch.core import quat as tq
 from ofps_torch.ops import epipolar as te
 from ofps_tpu.core import quat as jq
 from ofps_tpu.ops import epipolar as je
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B = 4
 

@@ -29,6 +29,7 @@ import torch
 from ofps_torch.ops import epipolar as te
 from ofps_torch.ops import five_point as tf
 from ofps_tpu.ops import five_point as jf
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _rotm(ax, ang):

@@ -24,6 +24,7 @@ from ofps_torch.ops import flow_pyramid as tfp
 from ofps_tpu.core.motion import grid_downsample_uv as j_grid_downsample_uv
 from ofps_tpu.ops import flow_pyramid as jfp
 from ofps_tpu.ops.image import warp_bilinear as j_warp
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 H, W, B = 96, 160, 2
 PX_TOL = 1e-4  # float32 rounding through warp, box sums and parabola

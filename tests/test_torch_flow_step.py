@@ -36,6 +36,7 @@ from ofps_tpu.core.motion import SparseFlow as JSparse
 from ofps_tpu.detectors.base import create_detector as j_det
 from ofps_tpu.estimators.base import create_estimator as j_est
 from ofps_tpu.parallel.stream import StreamPipeline as JPipe
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B, CAP, T = 3, 1024, 3
 NAMES = ("almeida", "libmv")

@@ -40,6 +40,7 @@ from ofps_tpu.estimators import homography as jhe
 from ofps_tpu.ops import homography as jho
 from ofps_tpu.ops import robust as jrob
 from ofps_tpu.ops import solve as jsolve
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 GW, GH = 150, 84
 N = GW * GH

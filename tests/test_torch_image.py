@@ -15,6 +15,7 @@ from scipy.ndimage import gaussian_filter
 
 from ofps_torch.ops import image as timg
 from ofps_tpu.ops import image as jimg
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # Image-value tolerance on the 0-255 scale: float32 reassociation only.
 TOL_IMG = 1e-4

@@ -1,8 +1,8 @@
 """The CUDA kernels of ``ofps_torch/csrc`` on the CPU, in emulation.
 
-The sources compile with ``g++`` against ``tests/cuda_cpu_emu.h`` (one CPU
-thread per CUDA thread, barriers for ``__syncthreads``, ``__syncwarp`` and
-the warp shuffles), and the kernel wrappers are pointed at that library, so
+The sources compile with ``g++`` against ``tests/cuda_cpu_emu.h`` (each CUDA
+thread a fiber on one CPU thread, switched at ``__syncthreads``,
+``__syncwarp`` and the warp shuffles), and the kernel wrappers are pointed at that library, so
 each wrapper runs its kernel's own indexing, halos, passes, argmin order
 and grid reduction on CPU tensors, against its plain version.  The tolerance
 is the one ``chip_smoke.py`` holds the card to: under 0.1% of pixels off by
@@ -30,6 +30,7 @@ from ofps_torch.kernels import build
 from ofps_torch.kernels import flow_refine as kfr
 from ofps_torch.kernels import flow_refine_small as kfs
 from ofps_torch.kernels import warp as kwarp
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 EMU_HEADER = Path(__file__).resolve().parent / "cuda_cpu_emu.h"
 STEP = 1.0 + 1e-3

@@ -33,6 +33,7 @@ from ofps_tpu.core.camera import StandardCamera as JCam
 from ofps_tpu.core.motion import SparseFlow as JSparse
 from ofps_tpu.estimators import libmv as jlm
 from ofps_tpu.ops import robust as jrob
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 G = jlm.GRID
 

@@ -22,6 +22,7 @@ from ofps_torch.ops import flow_lk as tlk
 from ofps_torch.ops.flow_pyramid import _warp
 from ofps_tpu.ops import flow_lk as jlk
 from ofps_tpu.ops.image import warp_bilinear as j_warp
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 H, W = 96, 128
 LK_TOL = 1e-4  # px

@@ -19,6 +19,7 @@ from ofps_tpu.core import camera as jcam
 from ofps_tpu.core import motion as jmo
 from ofps_tpu.core import quat as jq
 from ofps_tpu.ops import geometry_uv as jgeo
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 1e-6
 

@@ -38,6 +38,7 @@ from ofps_tpu.estimators import multiview as jmv
 from ofps_tpu.ops import epipolar as je
 from ofps_tpu.ops import robust as jrob
 from ofps_tpu.ops.five_point import five_point_essential as j_five
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 GW, GH = 150, 84
 JCAM = JCam.create(GW / GH, 60.0)

@@ -8,7 +8,10 @@ level emits grid sums, the JAX CPU path densifies full-resolution flow).
 The JAX pipeline runs two frames, its state is handed over with
 ``interop.state_from_jax``, and one more frame goes through both with the
 RANSAC draws JAX's key split produced injected into the port (the JAX
-stream splits its key into one key per estimator and stream).
+stream splits its key into one key per estimator and stream).  JAX's
+pipeline of all four estimators runs once for the file (``jax_slice``);
+each estimator set of the test is a leading part of the four and takes
+its estimators' state, outputs and draws from that run.
 
 Tolerances: grid entries within 1e-5 (normalized units) for at least 99.5%
 and none off by more than 1.5/W (one flow-candidate flip at a ~1-pixel
@@ -37,6 +40,7 @@ from ofps_tpu.estimators.base import create_estimator as j_est
 from ofps_tpu.ops.flow_pyramid import FlowParams as JFlowParams
 from ofps_tpu.ops.robust import sample_indices as j_sample_indices
 from ofps_tpu.parallel.stream import StreamPipeline as JPipe
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 H, W, B = 96, 160, 2
 # Multiview and libmv on this scene's grid: JAX's own multiview gives
@@ -105,19 +109,41 @@ def _stack(xs):
     return torch.from_numpy(np.stack([np.asarray(x) for x in xs]))
 
 
-@pytest.mark.parametrize("names", ESTIMATOR_SETS, ids="+".join)
-def test_slice_matches_jax_after_state_handover(names):
+@pytest.fixture(scope="module")
+def jax_slice():
+    """JAX's pipeline of all four estimators, once for the file: two
+    frames, the state handed over, the third frame's outputs and state, and
+    the draws its key split produced.  Every estimator set of the test is a
+    leading part of the four; the estimators of a step are independent, so
+    their outputs here are those of a JAX pipeline of that set given the
+    same draws."""
+    names = ESTIMATOR_SETS[-1]
     frames = _frames(3)
-    jp, tp = _pipes(names)
+    jp, _ = _pipes(names)
     step = jax.jit(jp.step_from_frames)
     state = jp.init_state(B, H, W)
     for t in range(2):
         state, _ = step(state, jnp.asarray(frames[t]), jax.random.PRNGKey(t))
     key = jax.random.PRNGKey(2)
     ref_state, ref = step(state, jnp.asarray(frames[2]), key)
-
     n = ref.grid.shape[1] * ref.grid.shape[2]
-    draws = _jax_draws(key, names, n)
+    return frames, state, ref_state, ref, _jax_draws(key, names, n)
+
+
+def _leading(x, k):
+    """A JAX state or outputs cut to its first ``k`` estimators."""
+    per = {f: getattr(x, f)[:k] for f in ("rot", "pos", "delta_rot", "delta_tr", "est")
+           if f in x._fields}
+    return x._replace(**per)
+
+
+@pytest.mark.parametrize("names", ESTIMATOR_SETS, ids="+".join)
+def test_slice_matches_jax_after_state_handover(names, jax_slice):
+    assert names == ESTIMATOR_SETS[-1][: len(names)]
+    frames, state, ref_state, ref, draws = jax_slice
+    k = len(names)
+    state, ref_state, ref, draws = _leading(state, k), _leading(ref_state, k), _leading(ref, k), draws[:k]
+    _, tp = _pipes(names)
     t_state = interop.state_from_jax(state, "cpu")
     new_state, out = tp.step_from_frames(t_state, torch.from_numpy(frames[2]), draws=draws)
 
