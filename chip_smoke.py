@@ -78,7 +78,21 @@ Phases, each printing its own line; any failure exits non-zero:
    ``bench-e2e`` over the fixture at 8 streams; and ``dense_flow_stream``
    at 1080p, B=4, 6 frames (its flow launches per step, bit-equal to the
    chained ``dense_flow_warm``, the 3 px pan, ms per frame);
-10. timing: ms/step of the serving step at B=1, 4, 8, of the all-estimator
+10. parallel: the multi-device layer (``ofps_torch.parallel``) with the
+   serving configuration at 1080p, B=8: a (stream, space) = (2, 2) mesh
+   and a (2, 1) stream-only mesh, one card per position where the machine
+   has four, else every position on cuda:0 (asked for explicitly and
+   printed).  Checks the (2, 1) step against the unsharded one within
+   1e-6 (homography family by family), the (2, 2) step's flow launches per
+   band and step, its almeida deltas and grid against the unsharded
+   step's, its full-resolution flow and warm carry against the same route
+   on the plain versions of the kernels and against the unsharded flow
+   (JAX's spatial gate, 16 px off every edge), the codec-MV step through
+   ``run_batch`` on the (2, 1) mesh against the unsharded one; times the
+   three steps (median of 3 captures x PAR_STEPS steps, with the host's
+   enqueue time); a world-size-1 NCCL group, and with two or more cards two NCCL
+   processes (one card each) and a launch and a graph replay on cuda:1;
+11. timing: ms/step of the serving step at B=1, 4, 8, of the all-estimator
    step at B=8 and of the cv step for both algorithms, kernel and plain
    paths; the consumers' graph at B=4 with almeida alone, homography alone
    and both, and at B=8 with multiview alone, libmv alone and all four,
@@ -105,6 +119,7 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 H, W = 1080, 1920
 SHIFT = 3.0
 OBJ, OBJ_SHIFT = 400, 12
@@ -189,7 +204,45 @@ DET_MOVING = ((4, 9), (13, 20))
 DET_SETTINGS = {"max_frame_gap": 2, "min_frames": 3}
 FLO_TOL = 1e-5
 WATCH_FRAMES = 8
+# Timed calls: of a plain path (a step, a kernel's plain version,
+# flow-extract's densify), and of each codec step's three repeats.
+PLAIN_ITERS, CODEC_STEPS = 2, 5
 STREAM_FRAMES = 6
+
+# The "parallel" phase: bench.py's serving step (almeida + homography +
+# block_motion) at 1080p, B=PAR_BATCH, on a (stream, space) = (2, 2) mesh
+# and a (2, 1) stream-only mesh: one card per position where the machine
+# has four, else every position on cuda:0.  PAR_FRAMES frames of the
+# serving scene (the first primes the state).  The stream-only step equals
+# the unsharded one within GRAPH_TOL (homography's rotation family by
+# family: its pick between two families of equal |t| is decided by
+# rounding, which differs between a B=4 and a B=8 graph; ROADMAP Queue 3,
+# homography_vs_plain).  The (2, 2) route's full-resolution flow and warm
+# carry agree with the same route on the plain versions of the kernels
+# (MISMATCH_PX, MAX_MISMATCH_SHARE: the kernels at the bands' shapes), and
+# its flow meets JAX's own gate for its spatial route against the
+# unsharded flow (tests/test_spatial_shard.py: mean EPE < SPATIAL_MEAN_PX
+# and 99th percentile < SPATIAL_P99_PX, seams included, SPATIAL_BORDER px
+# off every edge; the whole frame is printed too).  The (2, 2) step's grid
+# meets the same gate against the unsharded step's grid over every cell
+# outside the consumers' border margin, and its almeida deltas are within
+# SPATIAL_DEG of the unsharded step's.  The codec-MV step on the (2, 1)
+# mesh equals the unsharded one over PAR_CODEC_FRAMES frames of
+# codec_fixture.  Steps are timed as the median of 3 captures (the
+# correctness run's and two new pipelines) x PAR_STEPS steps.
+PAR_BATCH, PAR_FRAMES, PAR_STEPS, PAR_CODEC_FRAMES = 8, 3, 5, 6
+SPATIAL_BORDER = 16
+SPATIAL_MEAN_PX, SPATIAL_P99_PX = 0.05, 0.75
+SPATIAL_DEG = 0.05
+# Flow launches per band per step on the (2, 2) mesh: a 1080 x (960 + 128)
+# band (no halo at the frame's edge) keeps the frame's six levels and its
+# choice of refine per level (ofps_torch/parallel/spatial.py): 1080x1088,
+# 540x544, 270x272 and 135x136 axis-separable (as 135x240 is in the
+# frame), 67x68 the 2-D sweep with search 1, the 33x34 coarsest level two
+# s=6 sweeps and the guard; the medians of levels 5..2 ride in the refines
+# of levels 4..1.
+BAND_LAUNCHES = {"flow_refine": 4, "flow_refine_small": 3, "guard_select": 1,
+                 "median3x3_uv": 4}
 
 # Roofline of one H100 SXM (published, dense, at 700 W): HBM3 bytes/s and
 # float32 operations/s outside the tensor cores.
@@ -234,7 +287,7 @@ def fail(msg: str) -> None:
 
 
 def phase(name: str, msg: str) -> None:
-    print(f"[{name}] {msg}", flush=True)
+    print(f"[{name} {time.perf_counter() - T_START:.1f} s] {msg}", flush=True)
 
 
 def textured(torch, batch: int, h: int, w: int, device, seed: int):
@@ -273,18 +326,23 @@ def with_low_contrast_band(frames):
     return out
 
 
-def time_ms(torch, fn, iters: int) -> float:
-    """Mean ms per call of ``fn`` after one warm-up call (CUDA events)."""
+def time_ms(torch, fn, iters: int):
+    """(ms, host ms) per call of ``fn`` after one warm-up call: CUDA
+    events, and the host's time to enqueue the same calls (its clock stops
+    before the final synchronize), near the event time when the host sets
+    the pace."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
+    host = (time.perf_counter() - t0) * 1e3 / iters
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters, host
 
 
 def device_ms(torch, fn, n: int = 20, reps: int = 5) -> float:
@@ -512,10 +570,10 @@ def time_cases(torch, items):
     back-to-back calls) and device ms (:func:`device_ms`)."""
     out = {"ms": [], "device_ms": [], "library_ms": [], "library_device_ms": []}
     for c in items:
-        out["ms"].append(time_ms(torch, c.kcall, 20))
+        out["ms"].append(time_ms(torch, c.kcall, 20)[0])
         out["device_ms"].append(device_ms(torch, c.kcall))
         lib = c.library
-        out["library_ms"].append(time_ms(torch, lib, 20) if lib else None)
+        out["library_ms"].append(time_ms(torch, lib, 20)[0] if lib else None)
         out["library_device_ms"].append(device_ms(torch, lib) if lib else None)
     return out
 
@@ -539,10 +597,12 @@ def compare(torch, got, ref, kind):
     return d.max().item(), share, finite and share < MAX_MISMATCH_SHARE
 
 
-def make_pipeline(device, plain: bool, estimators=ESTIMATORS, fov_y: float = 60.0):
+def make_pipeline(device, plain: bool, estimators=ESTIMATORS, fov_y: float = 60.0,
+                  shardings=None):
     """The serving configuration: ``estimators`` (bench.py's almeida +
     homography by default) + block_motion, serving mode, 1080p camera
-    (the codec phase takes run_batch's fov_y, CODEC_FOV_Y)."""
+    (the codec phase takes run_batch's fov_y, CODEC_FOV_Y), on ``device``
+    or on the mesh of ``shardings``."""
     from ofps_torch.core.camera import StandardCamera
     from ofps_torch.detectors.base import create_detector
     from ofps_torch.estimators.base import create_estimator
@@ -555,6 +615,7 @@ def make_pipeline(device, plain: bool, estimators=ESTIMATORS, fov_y: float = 60.
         emit_dense_flow=False,
         device=device,
         plain=plain,
+        shardings=shardings,
     )
 
 
@@ -1003,22 +1064,22 @@ def run_codec(torch, device, counters, smi):
         flow = type(flow8)(*(x[:bb] for x in flow8))
         state = pipe.init_state(bb, 1, 1)
         key = f"{'+'.join(names)}_B{bb}"
-        reps = [time_ms(torch, lambda p=pipe, s=state, f=flow: p.step_from_flow(s, f, gen), 10)
-                for _ in range(3)]
+        reps = [time_ms(torch, lambda p=pipe, s=state, f=flow: p.step_from_flow(s, f, gen),
+                        CODEC_STEPS)[0] for _ in range(3)]
         step_ms[key] = sorted(reps)[1]
         draws = tuple(e.draw(gen, (bb,), cap, device, dense=False) for e in pipe.estimators)
         n, kms = consumer_kernels(torch, pipe, state, flow, draws)
         kernels[key] = {"kernels": n, "kernel_ms": kms, "repeats_ms": reps}
         phase("timing", f"codec step_from_flow B={bb} capacity {cap}, {'+'.join(names)} + "
-              f"block_motion: {step_ms[key]:.3f} ms/step, median of 3 x 10 steps "
+              f"block_motion: {step_ms[key]:.3f} ms/step, median of 3 x {CODEC_STEPS} steps "
               f"{[round(r, 3) for r in reps]} ({step_ms[key] / bb:.3f} ms/frame); "
               + (f"{n} CUDA kernels, {kms:.3f} ms of kernel time in the same consumers "
                  f"called eagerly (torch.profiler)" if n else "kernels not measured")
               + f" | {smi}")
     up = FlowUploader(b, cap, device)
     up.pack([None] * b)
-    upload_ms = time_ms(torch, up.upload, 10)
-    live_ms = time_ms(torch, lambda: live.step(flow8, gen), 10)
+    upload_ms = time_ms(torch, up.upload, 10)[0]
+    live_ms = time_ms(torch, lambda: live.step(flow8, gen), 10)[0]
     # The sparse detector alone, and its deterministic one-hot accumulation
     # against scatter_add (atomics: the order of the adds varies), each on
     # the device alone (a CUDA graph of 20 calls).
@@ -1231,7 +1292,7 @@ def run_apps(torch, device, counters, smi):
         f1 = dec.process_frame()
         dec.close()
         field_ms = time_ms(torch, lambda: cli.flow_field(f1.pos, f1.motion, 150, 84,
-                                                         CODEC_CAPACITY, device), 10)
+                                                         CODEC_CAPACITY, device), PLAIN_ITERS)[0]
         out["flow_extract"] = {"ms_per_frame_wall": wall_ms, "field_ms": field_ms,
                                "max_abs_err_px": flo_err}
         phase("apps", f"flow-extract 150x84 ({CODEC_FRAMES} frames): rc {rc_g}/{rc_c}, .flo "
@@ -1325,11 +1386,11 @@ def run_apps(torch, device, counters, smi):
     first_zero = not (flows[0][0].any() or flows[0][1].any())
     med = flows[-1][0][:, 64:-64, 64:-64].median().item()
     mid = (frames[1], dense_flow_stream(frames[0], params)[1])
-    stream_ms = time_ms(torch, lambda: dense_flow_stream(mid[0], params, mid[1]), 10)
+    stream_ms = time_ms(torch, lambda: dense_flow_stream(mid[0], params, mid[1]), 10)[0]
     chain_ms = time_ms(torch, lambda: dense_flow_warm(
-        frames[0], frames[1], params, warm=mid[1].warm, prev_cache=mid[1].cache), 10)
+        frames[0], frames[1], params, warm=mid[1].warm, prev_cache=mid[1].cache), 10)[0]
     cold_ms = time_ms(torch, lambda: dense_flow_warm(
-        frames[0], frames[1], params, warm=mid[1].warm), 10)
+        frames[0], frames[1], params, warm=mid[1].warm), 10)[0]
     stream_dev = device_ms(torch, lambda: dense_flow_stream(mid[0], params, mid[1]))
     out["dense_flow_stream"] = {"ms_per_step": stream_ms, "ms_per_frame": stream_ms / batch,
                                 "device_ms_per_step": stream_dev,
@@ -1348,13 +1409,407 @@ def run_apps(torch, device, counters, smi):
     return out, launches
 
 
+def parallel_meshes(torch):
+    """The (2, 2) and (2, 1) meshes: one card per position where there
+    are four, else every position on cuda:0, asked for explicitly."""
+    from ofps_torch.parallel import make_stream_mesh
+
+    if torch.cuda.device_count() >= 4:
+        devices = [torch.device("cuda", i) for i in range(4)]
+    else:
+        devices = [torch.device("cuda", 0)] * 4
+    return (make_stream_mesh(4, space=2, devices=devices),
+            make_stream_mesh(2, space=1, devices=devices[:2]))
+
+
+def sync_all(torch) -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def outputs_diff(torch, a, b) -> float:
+    """Max |a - b| over two runs' outputs, step by step: grids, every
+    translation, detections, and the poses of every estimator but
+    homography, whose rotations :func:`homography_vs_plain` holds family
+    by family (and whose positions integrate them)."""
+    from ofps_torch.parallel.stream import _leaves
+
+    keep = [i for i, name in enumerate(ESTIMATORS) if name != "homography"]
+
+    def held(o):
+        return (o.grid, [o.rot[i] for i in keep], [o.pos[i] for i in keep],
+                [o.delta_rot[i] for i in keep], o.delta_tr, o.detection)
+
+    return max((x.float() - y.float()).abs().max().item()
+               for x, y in zip(_leaves([held(o) for o in a]), _leaves([held(o) for o in b]))
+               if x.numel())
+
+
+def spatial_epe(torch, u, v, ru, rv, m: int):
+    """(mean, 99th percentile) of the endpoint error ``m`` px off every
+    edge."""
+    h, w = u.shape[-2:]
+    epe = torch.hypot(u - ru, v - rv)[:, m : h - m, m : w - m].flatten()
+    k = max(1, math.ceil(0.99 * epe.numel()))
+    return epe.mean().item(), torch.kthvalue(epe.cpu(), k).values.item()
+
+
+def grid_epe(torch, got, ref, border_px: int):
+    """(mean, 99th percentile) px endpoint error of two (..., gh, gw, 2)
+    normalized grids over the cells wholly outside ``border_px`` of the
+    frame's edges (the cells inside are copies of these)."""
+    gh, gw = got.shape[-3:-1]
+    ys = [r for r in range(gh) if r * H / gh >= border_px and (r + 1) * H / gh <= H - border_px]
+    xs = [c for c in range(gw) if c * W / gw >= border_px and (c + 1) * W / gw <= W - border_px]
+    d = (got - ref)[..., ys, :, :][..., xs, :]
+    epe = torch.hypot(d[..., 0] * W, d[..., 1] * H).flatten()
+    k = max(1, math.ceil(0.99 * epe.numel()))
+    return epe.mean().item(), torch.kthvalue(epe.cpu(), k).values.item()
+
+
+def decoded_flows(torch, mvecs, device):
+    """The (B, capacity) SparseFlow of each step of ``run_batch`` over
+    ``mvecs``, as its uploader makes them."""
+    from ofps_torch.apps.batch import FlowUploader
+    from ofps_torch.decoders.mvec import MvecDecoder
+
+    decs = [MvecDecoder(p) for p in mvecs]
+    up = FlowUploader(len(mvecs), CODEC_CAPACITY, device)
+    flows = []
+    try:
+        while True:
+            frames = [d.process_frame() for d in decs]
+            if any(f is None for f in frames):
+                return flows
+            up.pack(frames)
+            flows.append(up.upload())
+    finally:
+        for d in decs:
+            d.close()
+
+
+def codec_homography_err(torch, pipe, flows, seed: int, deltas):
+    """Homography's delta rotations ``deltas`` (T, B, 4) of a codec run
+    over ``flows`` whose generator was seeded with ``seed``, against the
+    nearer of the two family rotations that the unsharded estimator gives
+    on the same flows and draws (``homography_vs_plain``'s rule, masked).
+    Returns (max |diff| to the nearer family, picks of the other one)."""
+    from ofps_torch.estimators import homography as he
+
+    i = ESTIMATORS.index("homography")
+    est = pipe.estimators[i]
+    gen = torch.Generator(device=pipe.device).manual_seed(seed)
+    near_err, flips = 0.0, 0
+    for flow, delta in zip(flows, deltas):
+        b = flow.mask.shape[0]
+        draws = [e.draw(gen, (b,), flow.capacity, pipe.device, dense=False)
+                 for e in pipe.estimators]
+        h = he.refined_homography(None, est.params, flow, pipe.camera, fit_idx=draws[i])
+        quats, tnorm = he.rotation_candidates(h, pipe.camera)
+        d = torch.from_numpy(delta).to(pipe.device)
+        near = (quats - d[:, None, :]).abs().amax(dim=-1).min(dim=-1)
+        near_err = max(near_err, near.values.max().item())
+        flips += int((near.indices != torch.argmin(tnorm, dim=-1)).sum().item())
+    return near_err, flips
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_distributed(torch, device):
+    """``distributed.maybe_initialize`` over NCCL in this process (world
+    size 1, one all_reduce); with two or more cards, two processes, one
+    per card, agreeing on ``tests/test_torch_distributed.py``'s global
+    reduction.  Returns the phase's notes."""
+    from ofps_torch.parallel import distributed
+
+    keys = ("OFPS_TORCH_COORDINATOR", "OFPS_TORCH_NUM_PROCESSES", "OFPS_TORCH_PROCESS_ID")
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ.update(OFPS_TORCH_COORDINATOR=f"127.0.0.1:{free_port()}",
+                      OFPS_TORCH_NUM_PROCESSES="1", OFPS_TORCH_PROCESS_ID="0")
+    try:
+        t0 = time.perf_counter()
+        joined = distributed.maybe_initialize(timeout_s=60)
+        backend = torch.distributed.get_backend()
+        x = torch.arange(1.0, 5.0, device=device)
+        same = bool(torch.equal(distributed.global_reduce(x, "sum"), x))
+        init_s = time.perf_counter() - t0
+    finally:
+        distributed.shutdown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    notes = {"world1": {"joined": joined, "backend": backend, "all_reduce_equal": same,
+                        "seconds": init_s}}
+    phase("parallel", f"distributed world size 1: maybe_initialize={joined} backend "
+          f"{backend}, all_reduce of a cuda:0 tensor equal={same}, {init_s:.2f} s, "
+          f"process group destroyed")
+    if not (joined and backend == "nccl" and same):
+        fail("parallel: the world-size-1 NCCL group did not work")
+    if torch.cuda.device_count() < 2:
+        phase("parallel", "one card: the two-process NCCL check and the cuda:1 launch check "
+              "need two cards and do not run here")
+        return notes
+    port = free_port()
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, PYTHONPATH=str(HERE), CUDA_VISIBLE_DEVICES=str(rank),
+                   OFPS_TORCH_COORDINATOR=f"127.0.0.1:{port}", OFPS_TORCH_NUM_PROCESSES="2",
+                   OFPS_TORCH_PROCESS_ID=str(rank))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(HERE / "tests" / "test_torch_distributed.py")], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=240)[0])
+    except subprocess.TimeoutExpired:
+        outs = None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if outs is None:
+        fail("parallel: a two-process worker timed out")
+    ok = [p.returncode == 0 and "MULTIPROC_OK" in o for p, o in zip(procs, outs)]
+    totals = {line.split("total=")[1] for o in outs for line in o.splitlines()
+              if "MULTIPROC_OK" in line}
+    notes["two_processes"] = {"ok": ok, "totals": sorted(totals)}
+    phase("parallel", f"two processes, one card each (NCCL): ok={ok}, global sums {sorted(totals)}")
+    if not (all(ok) and len(totals) == 1):
+        fail("parallel: the two processes disagree:\n" + "\n".join(o[-2000:] for o in outs))
+    notes["second_card"] = second_card(torch)
+    return notes
+
+
+def second_card(torch):
+    """A kernel launch and a consumers' graph replay on cuda:1 while
+    cuda:0 is current (the launches' device guard)."""
+    from ofps_torch.kernels import flow_refine as kfr
+
+    dev = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    frames = moving_frames(torch, 2, 2, H, W, dev)
+    u = torch.full((2, H // 2, W // 2), SHIFT / 2, device=dev)
+    got = kfr.flow_refine(frames[0], frames[1], u, u, 5)
+    ref = kfr.flow_refine_plain(frames[0], frames[1], u, u, 5)
+    off = max(((a - b).abs() > MISMATCH_PX).float().mean().item() for a, b in zip(got, ref))
+    pipe = make_pipeline(dev, False)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    st, outs = pipe.scan_frames(pipe.init_state(2, H, W), frames, gen)
+    torch.cuda.synchronize(dev)
+    finite = all(bool(torch.isfinite(r).all()) for o in outs for r in o.rot)
+    note = {"refine_mismatch_share": off, "graph_replays": pipe.graph_replays,
+            "eager_runs": pipe.eager_runs, "device": str(outs[-1].grid.device)}
+    phase("parallel", f"cuda:1 with cuda:0 current: flow_refine 1080p B=2 vs plain, pixels "
+          f"off by >{MISMATCH_PX} px {off:.2e}; serving step x2: graph replays "
+          f"{pipe.graph_replays}, eager {pipe.eager_runs}, outputs on {note['device']}, "
+          f"poses finite={finite}")
+    if not (off <= MAX_MISMATCH_SHARE and pipe.graph_replays == 2 and pipe.eager_runs == 0
+            and finite and note["device"] == "cuda:1"):
+        fail("parallel: a launch or a graph on cuda:1 went wrong")
+    return note
+
+
+def run_parallel(torch, device, counters, smi):
+    """The "parallel" phase (constants PAR_* above): the meshes, the
+    stream-only step against the unsharded one, the (2, 2) route's flow
+    and poses against the unsharded step's, the codec-MV step on the
+    (2, 1) mesh, the step times, and the distributed checks.  Returns
+    (results, the flow launches of the (2, 2) run)."""
+    import tempfile
+
+    import numpy as np
+
+    from ofps_torch.apps.batch import run_batch
+    from ofps_torch.core import quat
+    from ofps_torch.ops.flow_pyramid import border_margin_px, dense_flow_warm
+    from ofps_torch.parallel import stream_sharding
+    from ofps_torch.parallel.spatial import DEFAULT_HALO, dense_flow_warm_spatial
+
+    t_phase = time.perf_counter()
+    mesh22, mesh21 = parallel_meshes(torch)
+    sh22, sh21 = stream_sharding(mesh22), stream_sharding(mesh21)
+    n_cards = torch.cuda.device_count()
+    layout = ("one card per position" if n_cards >= 4 else
+              "every position on cuda:0, asked for explicitly (a degenerate mesh: the "
+              "bands, halos, per-row graphs and kernels all run on the one card)")
+    phase("parallel", f"{mesh22} and {mesh21}; {n_cards} card(s) visible; {layout} | {smi}")
+    b = PAR_BATCH
+    frames = moving_frames(torch, PAR_FRAMES, b, H, W, device)
+
+    def run(pipe, seed):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        out = pipe.scan_frames(pipe.init_state(b, H, W), frames, gen)
+        sync_all(torch)
+        return out
+
+    # The stream-only mesh against the unsharded step: same draws.
+    base = make_pipeline(device, False)
+    base_state, ref = run(base, SEED + 31)
+    p21 = make_pipeline(device, False, shardings=sh21)
+    _, got21 = run(p21, SEED + 31)
+    err21 = outputs_diff(torch, got21, ref)
+    n_grid = ref[0].grid.shape[1] * ref[0].grid.shape[2]
+    h_near, h_flips, h_picked = homography_vs_plain(
+        torch, base, got21, ref, frame_draws(torch, base, SEED + 31, PAR_FRAMES, b, n_grid, device))
+    phase("parallel", f"(2, 1) vs unsharded, 1080p B={b}, {PAR_FRAMES} steps: grids, "
+          f"translations, detections and almeida's poses max |diff| {err21:.3e}; homography's "
+          f"rotation to the unsharded step's nearer family {h_near:.3e} (tolerance "
+          f"{GRAPH_TOL}), picks of the other family {h_flips} of {b * PAR_FRAMES} (max |diff| "
+          f"of the picks {h_picked:.3e}); graph replays {p21.graph_replays} (two rows per "
+          f"step), eager runs {p21.eager_runs}")
+    if (max(err21, h_near) > GRAPH_TOL or p21.graph_replays != 2 * PAR_FRAMES
+            or p21.eager_runs):
+        fail("parallel: the stream-only step differs from the unsharded one")
+
+    # The (2, 2) serving step: launches per band, poses and grid against
+    # the unsharded step's.
+    p22 = make_pipeline(device, False, shardings=sh22)
+    (_, got22), counts = count_launches(torch, counters, lambda: run(p22, SEED + 31))
+    launches = {k: counts[k] for k in BAND_LAUNCHES}
+    per_band = {k: n / (PAR_FRAMES * 4) for k, n in launches.items()}
+    finite = all(bool(torch.isfinite(x).all()) for o in got22
+                 for x in (*o.rot, *o.pos, *o.delta_rot, *o.delta_tr))
+    alm_deg = [max(math.degrees(d) for d in quat.angle_to(o.delta_rot[0], r.delta_rot[0]).tolist())
+               for o, r in zip(got22, ref)]
+    margin = border_margin_px(base.flow_params, H, W)
+    grid_err = grid_epe(torch, torch.stack([o.grid for o in got22[1:]]),
+                        torch.stack([r.grid for r in ref[1:]]), margin)
+    phase("parallel", f"(2, 2) serving step 1080p B={b}, {PAR_FRAMES} steps, halo "
+          f"{DEFAULT_HALO}: flow launches {launches}, per band per step {per_band} (expected "
+          f"{BAND_LAUNCHES}); graph replays {p22.graph_replays}, eager runs {p22.eager_runs}; "
+          f"poses finite={finite}; almeida delta rotation vs the unsharded step, max per "
+          f"step over the streams, deg: {[round(d, 5) for d in alm_deg]} (gate {SPATIAL_DEG}); "
+          f"grid vs the unsharded step's, the {PAR_FRAMES - 1} steps after the first, cells "
+          f"outside the {margin} px border margin: (mean, p99) EPE px "
+          f"({grid_err[0]:.5f}, {grid_err[1]:.5f}) (gates {SPATIAL_MEAN_PX}, {SPATIAL_P99_PX})")
+    if per_band != {k: float(n) for k, n in BAND_LAUNCHES.items()}:
+        fail(f"parallel: the (2, 2) bands launched {launches}")
+    if not finite or max(alm_deg) > SPATIAL_DEG or p22.graph_replays != 2 * PAR_FRAMES:
+        fail("parallel: the (2, 2) step's poses are off, or its consumers did not replay")
+    if not (grid_err[0] < SPATIAL_MEAN_PX and grid_err[1] < SPATIAL_P99_PX):
+        fail("parallel: the (2, 2) step's grid misses the spatial route's gate")
+
+    # The (2, 2) route's full-resolution flow and warm carry, same frames
+    # and state: cold (no warm start), then warm-started from the unsharded
+    # step's carry after frame 1.  Against the same route on the plain
+    # versions of the kernels, and against the unsharded flow.
+    params = base.flow_params
+    st = base.init_state(b, H, W)
+    st, _ = base.step_from_frames(st, frames[0])
+    st, _ = base.step_from_frames(st, frames[1])
+    epes, vs_plain = {}, {}
+    for start, (i1, i2, warm) in {"cold": (frames[0], frames[1], None),
+                                  "warm": (frames[1], frames[2], st.warm_uv)}.items():
+        (ru, rv), _, _ = dense_flow_warm(i1, i2, params, warm=warm)
+        (u, v), carry = dense_flow_warm_spatial(i1, i2, params, warm, mesh22)
+        (pu, pv), pcarry = dense_flow_warm_spatial(i1, i2, params, warm, mesh22, plain=True)
+        for k, got, want in (("flow", (u, v), (pu, pv)), ("carry", carry, pcarry)):
+            vs_plain[f"{start}_{k}"] = compare(torch, got, want, ("flow", None))
+        epes[start] = spatial_epe(torch, u, v, ru, rv, SPATIAL_BORDER)
+        epes[f"{start}_whole"] = spatial_epe(torch, u, v, ru, rv, 0)
+        del pu, pv, pcarry
+    phase("parallel", f"(2, 2) full-resolution flow and warm carry vs the same route on the "
+          f"plain versions, 1080p B={b}, the whole band output: (max |diff| px, share off "
+          f"by >{MISMATCH_PX} px) "
+          f"{ {k: (float(f'{e:.3e}'), float(f'{sh:.2e}')) for k, (e, sh, _) in vs_plain.items()} } "
+          f"(share gate {MAX_MISMATCH_SHARE})")
+    if not all(ok for _, _, ok in vs_plain.values()):
+        fail("parallel: the (2, 2) route's kernels disagree with their plain versions")
+    phase("parallel", f"(2, 2) full-resolution flow vs unsharded, 1080p B={b}, "
+          f"{SPATIAL_BORDER} px off every edge (and, not gated, the whole frame): (mean, p99) "
+          f"EPE px { {k: (round(m, 5), round(p, 5)) for k, (m, p) in epes.items()} } (gates "
+          f"{SPATIAL_MEAN_PX}, {SPATIAL_P99_PX})")
+    if not all(m < SPATIAL_MEAN_PX and p < SPATIAL_P99_PX
+               for k, (m, p) in epes.items() if k in ("cold", "warm")):
+        fail("parallel: the (2, 2) flow misses the spatial route's gate")
+    del base_state, ref, got21, got22, st
+
+    # The codec-MV step on the (2, 1) mesh against the unsharded one,
+    # through run_batch (each row packed and uploaded to its own device).
+    with tempfile.TemporaryDirectory() as tmp:
+        mvecs, gts, _ = codec_fixture(torch, Path(tmp), b, PAR_CODEC_FRAMES)
+        kw = dict(estimators=[{"name": n} for n in ESTIMATORS], ground_truths=gts,
+                  capacity=CODEC_CAPACITY, seed=SEED + 34, device=device)
+        ref_c = run_batch(mvecs, **kw)
+        got_c = run_batch(mvecs, shardings=sh21, **kw)
+        flows = decoded_flows(torch, mvecs, device)
+    alm = ESTIMATORS.index("almeida")
+    codec_err = max(float(np.abs(np.stack(g[alm]) - np.stack(r[alm])).max())
+                    for g, r in ((got_c.delta_rot, ref_c.delta_rot),
+                                 (got_c.rot_hist, ref_c.rot_hist)))
+    c_near, c_flips = codec_homography_err(
+        torch, make_pipeline(device, False, ESTIMATORS, CODEC_FOV_Y), flows, SEED + 34,
+        np.stack(got_c.delta_rot[ESTIMATORS.index("homography")]))
+    same_det = bool((got_c.detections == ref_c.detections).all())
+    same_vec = bool((got_c.vectors == ref_c.vectors).all())
+    phase("parallel", f"codec-MV (2, 1) vs unsharded through run_batch, B={b}, "
+          f"{PAR_CODEC_FRAMES} frames, capacity {CODEC_CAPACITY}, {'+'.join(ESTIMATORS)} + "
+          f"block_motion: almeida's delta and integrated rotations max |diff| "
+          f"{codec_err:.3e}; homography's delta rotation to the unsharded step's nearer "
+          f"family {c_near:.3e} (tolerance {GRAPH_TOL}), picks of the other family {c_flips} "
+          f"of {b * PAR_CODEC_FRAMES}; detections equal={same_det}, vectors equal={same_vec}; "
+          f"graph replays {got_c.graph_replays} (unsharded {ref_c.graph_replays})")
+    if not (max(codec_err, c_near) <= GRAPH_TOL and same_det and same_vec
+            and got_c.frames == PAR_CODEC_FRAMES
+            and got_c.graph_replays == 2 * PAR_CODEC_FRAMES):
+        fail("parallel: the codec-MV step on the (2, 1) mesh differs from the unsharded one")
+
+    # Step times: three captures each (the correctness run's pipeline, then
+    # two new ones, their graphs captured on their first step), PAR_STEPS
+    # steps per capture, CUDA events on cuda:0 (the outputs gather there,
+    # so the end waits for every row).
+    gen = torch.Generator(device=device).manual_seed(SEED + 33)
+    step_ms = {}
+    for name, sh, first in (("unsharded", None, base), ("(2,1)", sh21, p21),
+                            ("(2,2)", sh22, p22)):
+        reps, hosts = [], []
+        for pipe in (first, None, None):
+            pipe = pipe or make_pipeline(device, False, shardings=sh)
+            st0, _ = pipe.step_from_frames(pipe.init_state(b, H, W), frames[0], gen)
+            ms, host = time_ms(
+                torch, lambda p=pipe, s=st0: p.step_from_frames(s, frames[1], gen), PAR_STEPS)
+            reps.append(ms)
+            hosts.append(host)
+            del pipe, st0
+        step_ms[name] = {"ms": sorted(reps)[1], "repeats_ms": reps, "host_enqueue_ms": hosts}
+        phase("timing", f"sharded step {name} 1080p B={b} {'+'.join(ESTIMATORS)} + "
+              f"block_motion: {sorted(reps)[1]:.3f} ms/step, median of 3 captures x "
+              f"{PAR_STEPS} steps {[round(r, 3) for r in reps]} ({sorted(reps)[1] / b:.3f} "
+              f"ms/frame); host enqueue ms/step {[round(h, 3) for h in hosts]} | {smi}")
+    del base, p21, p22
+    if not all(math.isfinite(v["ms"]) for v in step_ms.values()):
+        fail("parallel: non-finite timing")
+    torch.cuda.empty_cache()
+    notes = run_distributed(torch, device)
+    phase("parallel", f"phase {time.perf_counter() - t_phase:.1f} s")
+    return {"meshes": [repr(mesh22), repr(mesh21)], "cards": n_cards, "step_ms": step_ms,
+            "stream_only_max_diff": err21, "stream_only_homography": {
+                "nearer_family_err": h_near, "other_family_picks": h_flips,
+                "picks_max_diff": h_picked},
+            "spatial_epe": epes, "spatial_vs_plain": {
+                k: {"max_abs_err": e, "mismatch_share": sh} for k, (e, sh, _) in vs_plain.items()},
+            "grid_epe": grid_err, "almeida_deg": alm_deg,
+            "codec_max_diff": codec_err, "launches_per_band_step": per_band,
+            "distributed": notes}, launches
+
+
 def consumer_kernels(torch, pipe, state, grid, draws):
     """CUDA kernels and their summed device ms in one eager ``_consume``
     (the calls its CUDA graph replays), from ``torch.profiler``; (None,
-    None) where the profiler sees no CUDA events."""
+    None) where the profiler sees no CUDA events.  ``pipe`` has run its
+    consumers before (their graph's capture warms them up)."""
     from torch.profiler import ProfilerActivity, profile
 
-    pipe._consume(state.est, state.rot, state.pos, grid, draws)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         pipe._consume(state.est, state.rot, state.pos, grid, draws)
@@ -1590,7 +2045,11 @@ def main() -> None:
     apps, launches_by_path["dense_flow_stream"] = run_apps(torch, device, counters, smi)
     torch.cuda.empty_cache()
 
-    # 10. timing
+    # 10. the multi-device layer: (2, 2) and (2, 1) meshes, distributed.
+    parallel, launches_by_path["sharded"] = run_parallel(torch, device, counters, smi)
+    torch.cuda.empty_cache()
+
+    # 11. timing
     from ofps_torch.decoders.cv import CvFlowStep
     from ofps_torch.ops.flow_pyramid import dense_flow_warm
 
@@ -1618,9 +2077,9 @@ def main() -> None:
             def consumers(st=st, pipe=pipe, grid=out.grid, d=draws):
                 return pipe._run_consumers(st, grid, d, None)
 
-            iters = 5 if plain else 10
-            ms = time_ms(torch, step, iters)
-            f_ms, c_ms = time_ms(torch, flow, iters), time_ms(torch, consumers, iters)
+            iters = PLAIN_ITERS if plain else 10
+            ms = time_ms(torch, step, iters)[0]
+            f_ms, c_ms = time_ms(torch, flow, iters)[0], time_ms(torch, consumers, iters)[0]
             config = "+".join(names)
             step_ms[("plain" if plain else "kernel", b, config)] = ms
             phase("timing", f"step {'plain ' if plain else 'kernel'} B={b} {config} "
@@ -1644,7 +2103,7 @@ def main() -> None:
             d = tuple(e.draw(gen, (b,), n_grid, device) for e in pipe.estimators)
             key = f"{'+'.join(names)}_B{b}"
             consumers_ms[key] = time_ms(
-                torch, lambda p=pipe, s=st, d=d, g=grid_b: p._run_consumers(s, g, d, None), 10)
+                torch, lambda p=pipe, s=st, d=d, g=grid_b: p._run_consumers(s, g, d, None), 10)[0]
             kernels, kernel_ms = consumer_kernels(torch, pipe, st, grid_b, d)
             consumer_kernel_counts[key] = {"kernels": kernels, "kernel_ms": kernel_ms}
             phase("timing", f"consumers' graph B={b}, {'+'.join(names)} + block_motion: "
@@ -1664,16 +2123,8 @@ def main() -> None:
             def cv_step(s=step):
                 return s(cv_frames[0], cv_frames[1], prev_flow)
 
-            iters = 5 if plain else 10
-            ms = time_ms(torch, cv_step, iters)
-            # Host time to enqueue the same calls: near the device time
-            # when the step is bound by launching its kernels.
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                cv_step()
-            host_ms = (time.perf_counter() - t0) * 1e3 / iters
-            torch.cuda.synchronize()
+            iters = PLAIN_ITERS if plain else 10
+            ms, host_ms = time_ms(torch, cv_step, iters)
             key = f"cv_{'rlof' if use_rlof else 'sad'}_{'plain' if plain else 'kernel'}"
             cv_ms[key] = ms
             phase("timing", f"{key} 1080p B=1 {ms:.3f} ms/step (host enqueue "
@@ -1681,7 +2132,7 @@ def main() -> None:
     timings = {}
     for name, items in cases.items():
         t = timings[name] = time_cases(torch, items)
-        pms = [time_ms(torch, c.pcall, 5) for c in items]
+        pms = [time_ms(torch, c.pcall, PLAIN_ITERS)[0] for c in items]
         bms = [c.bound for c in items]
         by = ("bytes" if sum(c.bytes_ms for c in items) >= sum(c.ops_ms for c in items)
               else "operations")
@@ -1741,7 +2192,8 @@ def main() -> None:
         "step_config": "+block_motion, ".join(["+".join(ESTIMATORS), "+".join(ALL4)]) + "+block_motion",
         "consumers_ms": consumers_ms,
         "consumer_kernels": consumer_kernel_counts,
-        "cv_step_ms": cv_ms, "codec": codec, "apps": apps, "card": smi}))
+        "cv_step_ms": cv_ms, "codec": codec, "apps": apps, "parallel": parallel,
+        "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -6,7 +6,9 @@ Each input is decoded on its own host thread (one frame of lookahead,
 are packed into one pinned host buffer, padded to ``capacity`` vectors,
 uploaded with one copy, and fed as a (B, capacity) :class:`SparseFlow` to
 :meth:`StreamPipeline.step_from_flow`, whose estimators (masked RANSAC)
-and detector replay as one CUDA graph on the card.
+and detector replay as one CUDA graph on the card.  With ``shardings``
+each mesh row has its own buffers, uploaded to the row's device, and its
+own graph.
 """
 
 from __future__ import annotations
@@ -23,8 +25,8 @@ from ofps_torch.core.camera import StandardCamera
 from ofps_torch.core.motion import SparseFlow, pack_entries
 from ofps_torch.decoders.base import DecodedFrame, create_decoder
 from ofps_torch.detectors.base import create_detector
-from ofps_torch.device import resolve_device
 from ofps_torch.estimators.base import create_estimator
+from ofps_torch.parallel.sharding import RowShards, StreamSharding
 from ofps_torch.parallel.stream import StreamPipeline
 from ofps_torch.pipeline.runtime import DecoderFeed, PerfStats
 
@@ -112,7 +114,7 @@ class FlowUploader:
         if self.device.type == "cuda":
             dev = self._bufs[i].to(self.device, non_blocking=True)
             self._done[i] = torch.cuda.Event()
-            self._done[i].record()
+            self._done[i].record(torch.cuda.current_stream(self.device))
         else:
             dev = self._bufs[i].clone()
         return SparseFlow(dev[..., 0:2], dev[..., 2:4], dev[..., 4])
@@ -131,7 +133,7 @@ class _Fetch:
             self._host.append(h)
         self._event = torch.cuda.Event() if cuda else None
         if cuda:
-            self._event.record()
+            self._event.record(torch.cuda.current_stream(device))
 
     def get(self) -> List[np.ndarray]:
         if self._event is not None:
@@ -154,9 +156,13 @@ def run_batch(
     drop_ended: bool = False,
     fetch_lag: int = 0,
     device="cuda",
+    shardings: Optional[StreamSharding] = None,
 ) -> BatchResult:
     """Run every input stream in lockstep through one batched step on
-    ``device`` (default the CUDA card; raises where there is none).
+    ``device`` (default the CUDA card; raises where there is none), or on
+    the mesh of ``shardings``: the streams split over its rows in order,
+    each row packed and uploaded to its own device, the results fetched
+    from the mesh's first device.
 
     Lockstep means processing stops at the SHORTEST stream: when any input
     ends, the remaining frames of longer streams are not processed (a log
@@ -175,18 +181,23 @@ def run_batch(
     next steps while the device works (0: read after every step).  The
     RANSAC draws come from a generator on the device seeded with ``seed``.
     """
-    dev = resolve_device(device)
     ests = [
         create_estimator(e["name"], **(e.get("properties") or {}))
         for e in (estimators or [{"name": "almeida"}])
     ]
     det = create_detector(detector) if detector else None
     camera = StandardCamera.create(camera_aspect, camera_fov_y)
-    pipe = StreamPipeline(camera=camera, estimators=ests, detector=det, device=dev)
+    pipe = StreamPipeline(camera=camera, estimators=ests, detector=det, device=device,
+                          shardings=shardings)
+    dev = pipe.device
     b = len(inputs)
     state = pipe.init_state(b, 1, 1)
     generator = torch.Generator(device=dev).manual_seed(seed)
-    uploader = FlowUploader(b, capacity, dev)
+    mesh = shardings.mesh if shardings is not None else None
+    row_devices = ([mesh.row_device(r) for r in range(mesh.shape["stream"])]
+                   if mesh is not None else [dev])
+    nb = b // len(row_devices)
+    uploaders = [FlowUploader(nb, capacity, d) for d in row_devices]
 
     feeds = [DecoderFeed(create_decoder(path, decoder_plugin)) for path in inputs]
     iters = [iter(f) for f in feeds]
@@ -244,8 +255,10 @@ def run_batch(
             # is the upload's cost (and the card's back-pressure), not the
             # decode's: "decode" is only the wait on the decoder feeds.
             with perf.time("upload"):
-                vectors.append(uploader.pack(batch))
-                flow = uploader.upload()
+                vectors.append(np.concatenate([
+                    up.pack(batch[r * nb : (r + 1) * nb]) for r, up in enumerate(uploaders)]))
+                flows = [up.upload() for up in uploaders]
+                flow = flows[0] if mesh is None else RowShards(flows)
             with perf.time("step"):
                 state, out = pipe.step_from_flow(state, flow, generator)
                 wanted = []
@@ -286,6 +299,7 @@ def run_batch(
                         gtmod.pose_stats(transforms, poses),
                     )
 
+    state = pipe.gather_state(state)
     return BatchResult(
         frames=frames,
         streams=b,

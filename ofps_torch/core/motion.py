@@ -14,6 +14,7 @@ package so both packages compute the same cell partition.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -300,12 +301,7 @@ def grid_downsample_uv(
     and cells wholly inside it are replicated from the nearest valid cell.
     """
     h, w = u.shape[-2], u.shape[-1]
-    sy_np, sx_np, counts_np, idx_y, idx_x = grid_scatter_plan_np(
-        h, w, gh, gw, border_px
-    )
-    dev = u.device
-    sy, sx = torch.from_numpy(sy_np).to(dev), torch.from_numpy(sx_np).to(dev)
-    counts = torch.from_numpy(counts_np).to(dev)
+    sy, sx, counts, idx_y, idx_x = _grid_plan_tensors(h, w, gh, gw, border_px, str(u.device))
 
     def ds(x):
         return sy.T @ (x.float() @ sx)
@@ -317,9 +313,18 @@ def grid_downsample_uv(
         sv = sv / norm_wh[1]
     out = torch.stack([su, sv], dim=-1)
     if idx_y is not None:
-        out = out.index_select(-3, torch.from_numpy(idx_y).to(dev))
-        out = out.index_select(-2, torch.from_numpy(idx_x).to(dev))
+        out = out.index_select(-3, idx_y)
+        out = out.index_select(-2, idx_x)
     return out
+
+
+@functools.lru_cache(maxsize=16)
+def _grid_plan_tensors(h: int, w: int, gh: int, gw: int, border_px: int, device: str):
+    """:func:`grid_scatter_plan_np` on ``device``, made once: a copy from
+    pageable host memory waits for the card, so a step must not make one
+    (the rows of a sharded step would run one after the other)."""
+    return tuple(None if a is None else torch.from_numpy(np.asarray(a)).to(device)
+                 for a in grid_scatter_plan_np(h, w, gh, gw, border_px))
 
 
 def gaussian_blur(field: torch.Tensor, ksize: int, sigma: float = 0.0) -> torch.Tensor:

@@ -158,6 +158,13 @@ def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def on_device(device):
+    """Make ``device`` the current card for a launch: the entry points set
+    the shared-memory attribute and launch on the current card, so it must
+    be the one whose stream and pointers they are given."""
+    return torch.cuda.device(device)
+
+
 @functools.lru_cache(maxsize=None)
 def _taps_np(n: int, on: int):
     """Two-tap form of the (on, n) resize matrix: ``idx`` (2, on) int32 and

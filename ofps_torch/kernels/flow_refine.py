@@ -128,12 +128,13 @@ def flow_refine(i1, i2, u, v, win: int, cost_dtype=torch.bfloat16,
         return None if t is None else t.data_ptr()
 
     lib = build.library()
-    status = lib.ofps_flow_refine(
-        ptr(i1), ptr(i2), ptr(u), ptr(v), ptr(yi), ptr(yw), ptr(xi), ptr(xw),
-        scale, ptr(u_out), ptr(v_out), ptr(cy), ptr(cx), ptr(gsu), ptr(gsv),
-        gh, gw, bsz, h, w, hc, wc, win, int(cost_dtype == torch.bfloat16),
-        int(median_in), build.stream_ptr(i1.device),
-    )
+    with build.on_device(i1.device):
+        status = lib.ofps_flow_refine(
+            ptr(i1), ptr(i2), ptr(u), ptr(v), ptr(yi), ptr(yw), ptr(xi), ptr(xw),
+            scale, ptr(u_out), ptr(v_out), ptr(cy), ptr(cx), ptr(gsu), ptr(gsv),
+            gh, gw, bsz, h, w, hc, wc, win, int(cost_dtype == torch.bfloat16),
+            int(median_in), build.stream_ptr(i1.device),
+        )
     build.check(status, "ofps_flow_refine")
     flow_refine.launches += 1
     flow_refine.median_in_launches += int(median_in)

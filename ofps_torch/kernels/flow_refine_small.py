@@ -58,12 +58,13 @@ def flow_refine_small(i1, i2, u, v, search: int, win: int,
         raise ValueError("flow_refine_small: shape mismatch")
     yi, yw, xi, xw, scale = build.upsample_taps(hc, wc, h, w, str(i1.device))
     u_out, v_out = torch.empty_like(i1), torch.empty_like(i1)
-    status = build.library().ofps_flow_refine_small(
-        i1.data_ptr(), i2.data_ptr(), u.data_ptr(), v.data_ptr(),
-        yi.data_ptr(), yw.data_ptr(), xi.data_ptr(), xw.data_ptr(), scale,
-        u_out.data_ptr(), v_out.data_ptr(), bsz, h, w, hc, wc, search, win,
-        int(cost_dtype == torch.bfloat16), int(median_in), build.stream_ptr(i1.device),
-    )
+    with build.on_device(i1.device):
+        status = build.library().ofps_flow_refine_small(
+            i1.data_ptr(), i2.data_ptr(), u.data_ptr(), v.data_ptr(),
+            yi.data_ptr(), yw.data_ptr(), xi.data_ptr(), xw.data_ptr(), scale,
+            u_out.data_ptr(), v_out.data_ptr(), bsz, h, w, hc, wc, search, win,
+            int(cost_dtype == torch.bfloat16), int(median_in), build.stream_ptr(i1.device),
+        )
     build.check(status, "ofps_flow_refine_small")
     flow_refine_small.launches += 1
     flow_refine_small.median_in_launches += int(median_in)
@@ -93,11 +94,12 @@ def guard_select(a, b, u_w, v_w, u_0, v_0, win: int):
     h, w = a.shape[-2:]
     bsz = a.numel() // (h * w)
     u_out, v_out = torch.empty_like(a), torch.empty_like(a)
-    status = build.library().ofps_guard_select(
-        a.data_ptr(), b.data_ptr(), u_w.data_ptr(), v_w.data_ptr(),
-        u_0.data_ptr(), v_0.data_ptr(), u_out.data_ptr(), v_out.data_ptr(),
-        bsz, h, w, win, build.stream_ptr(a.device),
-    )
+    with build.on_device(a.device):
+        status = build.library().ofps_guard_select(
+            a.data_ptr(), b.data_ptr(), u_w.data_ptr(), v_w.data_ptr(),
+            u_0.data_ptr(), v_0.data_ptr(), u_out.data_ptr(), v_out.data_ptr(),
+            bsz, h, w, win, build.stream_ptr(a.device),
+        )
     build.check(status, "ofps_guard_select")
     guard_select.launches += 1
     return u_out, v_out

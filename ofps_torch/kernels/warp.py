@@ -35,10 +35,11 @@ def warp_bilinear(img, u, v):
         raise ValueError("warp_bilinear: img, u and v must be (..., H, W) of one shape")
     h, w = img.shape[-2], img.shape[-1]
     out = torch.empty_like(img)
-    status = build.library().ofps_warp_bilinear(
-        img.data_ptr(), u.data_ptr(), v.data_ptr(), out.data_ptr(),
-        img.numel() // (h * w), h, w, build.stream_ptr(img.device),
-    )
+    with build.on_device(img.device):
+        status = build.library().ofps_warp_bilinear(
+            img.data_ptr(), u.data_ptr(), v.data_ptr(), out.data_ptr(),
+            img.numel() // (h * w), h, w, build.stream_ptr(img.device),
+        )
     build.check(status, "ofps_warp_bilinear")
     warp_bilinear.launches += 1
     return out

@@ -247,9 +247,15 @@ def _dense_flow_impl(
     prev_cache: Optional[FrameCache] = None,
     grid_plan=None,
     plain: bool = False,
+    frame_shape: Optional[Tuple[int, int]] = None,
 ):
     """Pyramid loop: returns ``(u, v, warm, cache)``, with ``warm`` the
     level-1 flow and ``cache`` the :class:`FrameCache` of ``i2``.
+
+    ``frame_shape``: the (H, W) of the whole frame when ``i1``/``i2`` are
+    a column band of it (:mod:`ofps_torch.parallel.spatial`): the depth
+    and each level's refine are chosen from the frame's level sizes, so a
+    band runs the unsharded pyramid's algorithm.
 
     ``init_uv``: optional (u, v) warm start at any resolution, resized to
     the coarsest level (jax's antialiased bilinear resize) and clamped to
@@ -263,7 +269,7 @@ def _dense_flow_impl(
     """
     ops = _PLAIN_OPS if plain else _KERNEL_OPS
     h0, w0 = i1.shape[-2], i1.shape[-1]
-    levels = effective_levels(params, h0, w0)
+    levels = effective_levels(params, *(frame_shape or (h0, w0)))
     pyr1 = list(prev_cache.pyr) if prev_cache is not None else build_pyramid(i1, levels)
     if len(pyr1) != levels:
         raise ValueError(f"prev_cache has {len(pyr1)} levels, expected {levels}")
@@ -286,6 +292,8 @@ def _dense_flow_impl(
         a, b = pyr1[lvl], pyr2[lvl]
         h, w = a.shape[-2], a.shape[-1]
         search = level_search(params, lvl, levels)
+        # The size that picks the refine: the frame's at this level.
+        fh, fw = (h, w) if frame_shape is None else (frame_shape[0] >> lvl, frame_shape[1] >> lvl)
         if u is None:
             u = torch.zeros_like(a)
             v = torch.zeros_like(a)
@@ -294,7 +302,7 @@ def _dense_flow_impl(
             zero = torch.zeros_like(a)
             u_0, v_0 = ops.refine_2d(a, b, zero, zero, search, params.win, params.cost_dtype)
             u, v = ops.guard(a, b, u_w, v_w, u_0, v_0, params.win)
-        elif uses_axis_sep(params, search, h, w):
+        elif uses_axis_sep(params, search, fh, fw):
             plan = grid_plan if lvl == 0 else None
             u, v = ops.refine_sep(
                 a, b, u, v, params.win, params.cost_dtype, grid_plan=plan,
@@ -335,6 +343,7 @@ def dense_flow_warm(
     prev_cache: Optional[FrameCache] = None,
     grid_plan=None,
     plain: bool = False,
+    frame_shape: Optional[Tuple[int, int]] = None,
 ):
     """Streaming dense flow: returns ``((u, v), warm_next, cache)``.
 
@@ -342,9 +351,11 @@ def dense_flow_warm(
     ``grid_plan`` is given; ``warm_next`` is the refined half-resolution
     flow to pass as ``warm`` on the next frame; ``cache`` is ``i2``'s
     :class:`FrameCache`, to pass as ``prev_cache`` with the next frame.
+    ``frame_shape``: see :func:`_dense_flow_impl` (column bands).
     """
     u, v, warm_next, cache = _dense_flow_impl(
-        i1, i2, params, warm, prev_cache, grid_plan=grid_plan, plain=plain
+        i1, i2, params, warm, prev_cache, grid_plan=grid_plan, plain=plain,
+        frame_shape=frame_shape,
     )
     return (u, v), warm_next, cache
 

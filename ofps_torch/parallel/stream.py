@@ -16,6 +16,12 @@ travel in :class:`StreamState`; B streams form the leading batch dim.  On
 CUDA the estimators and the detector replay as one CUDA graph per input
 kind and shape, the estimators' carries (libmv's :class:`PrevMotion`) and
 the per-frame properties (0-d device tensors) passing in as static inputs.
+
+``shardings`` (:mod:`ofps_torch.parallel.sharding`) spreads a step over a
+(stream, space) mesh: the batch splits into the mesh's rows, each row runs
+the step on its own devices (its own consumers' graph), and with a space
+axis the row's dense flow runs as column bands with a halo exchange
+(:mod:`ofps_torch.parallel.spatial`).
 """
 
 from __future__ import annotations
@@ -47,6 +53,14 @@ from ofps_torch.ops.flow_pyramid import (
     frame_cache,
     grid_fusable,
 )
+from ofps_torch.parallel.sharding import (
+    RowShards,
+    StreamMesh,
+    StreamSharding,
+    gather,
+    shard_put,
+)
+from ofps_torch.parallel.spatial import dense_flow_warm_spatial
 
 
 class StreamState(NamedTuple):
@@ -80,6 +94,16 @@ class StreamPipeline:
     emits the grid sums directly and no full-resolution flow is stored.
     ``plain=True`` runs the plain PyTorch versions of the kernels (the
     reference the kernel path is checked and timed against).
+
+    ``shardings``: a :class:`StreamSharding` whose mesh replaces ``device``.
+    The state is then a :class:`RowShards` of per-row states (from
+    :meth:`init_state`), a step takes the whole batch (or a
+    :class:`RowShards` of it) and returns outputs gathered on the mesh's
+    first device.  The RANSAC draws are made once for the whole batch, as
+    the unsharded step makes them, and then split, so a stream-only mesh
+    gives the unsharded step's results.  With a space axis the flow runs
+    as column bands (no grid plan: the full-resolution flow is densified)
+    and the carried cache holds the raw frame only.
     """
 
     def __init__(
@@ -92,6 +116,8 @@ class StreamPipeline:
         emit_dense_flow: bool = True,
         device="cuda",
         plain: bool = False,
+        shardings: Optional[StreamSharding] = None,
+        _band_mesh: Optional[StreamMesh] = None,
     ):
         self.camera = camera
         self.estimators = tuple(estimators)
@@ -99,18 +125,40 @@ class StreamPipeline:
         self.flow_params = flow_params
         self.grid_wh = grid_wh
         self.emit_dense_flow = emit_dense_flow
-        self.device = resolve_device(device)
         self.plain = plain
+        self.shard = shardings
         self._grid_plans: dict = {}
         self._graphs: dict = {}
         # Consumer runs by kind: CUDA-graph replays and eager calls.
         self.graph_replays = 0
         self.eager_runs = 0
+        # A row of a sharded pipeline: the (1, space) mesh its flow's
+        # column bands run on, when the space axis is larger than 1.
+        self._band_mesh = _band_mesh
+        self._rows: Tuple["StreamPipeline", ...] = ()
+        if shardings is None:
+            self.device = resolve_device(device)
+            return
+        mesh = shardings.mesh
+        for row in mesh.devices:
+            for d in row:
+                resolve_device(d)
+        self.device = mesh.first_device
+        self._rows = tuple(self._row_pipeline(mesh.row(r)) for r in range(mesh.shape["stream"]))
+
+    def _row_pipeline(self, row_mesh: StreamMesh) -> "StreamPipeline":
+        """The pipeline of one mesh row, on the row's first device."""
+        return StreamPipeline(
+            self.camera, self.estimators, self.detector, self.flow_params, self.grid_wh,
+            self.emit_dense_flow, device=row_mesh.first_device, plain=self.plain,
+            _band_mesh=row_mesh if row_mesh.shape["space"] > 1 else None,
+        )
 
     def _grid_plan(self, h: int, w: int) -> Optional[GridPlan]:
         """Static in-kernel densify plan of the finest level, or None when
         the dense flow is emitted or the finest level is not grid-fusable."""
-        if self.emit_dense_flow or not grid_fusable(self.flow_params, h, w):
+        if (self.emit_dense_flow or self._band_mesh is not None
+                or not grid_fusable(self.flow_params, h, w)):
             return None
         if (h, w) not in self._grid_plans:
             gw, gh = self.grid_wh or grid_size_for(w, h)
@@ -122,7 +170,29 @@ class StreamPipeline:
 
     # -- state ---------------------------------------------------------------
 
-    def init_state(self, batch: int, height: int, width: int) -> StreamState:
+    def _make_cache(self, gray: torch.Tensor) -> FrameCache:
+        """``gray``'s :class:`FrameCache` for the carry: its pyramid, or
+        the frame alone where the flow runs as column bands (each band
+        builds its own pyramid, as JAX's spatial route does)."""
+        if self._band_mesh is not None:
+            return FrameCache(pyr=(gray,))
+        return frame_cache(gray, self.flow_params)
+
+    def state_with_frame(self, state, gray: torch.Tensor):
+        """``state`` as if ``gray`` (B, H, W) were the last frame processed
+        (priming)."""
+        if self._rows:
+            return RowShards(row.state_with_frame(s, g) for row, s, g in
+                             zip(self._rows, state, self._split(gray)))
+        return state._replace(prev_cache=self._make_cache(gray),
+                              has_prev=torch.ones_like(state.has_prev))
+
+    def init_state(self, batch: int, height: int, width: int):
+        if self._rows:
+            n = len(self._rows)
+            if batch % n:
+                raise ValueError(f"batch {batch} does not split into {n} mesh rows")
+            return RowShards(row.init_state(batch // n, height, width) for row in self._rows)
         dev = self.device
         if effective_levels(self.flow_params, height, width) > 1:
             wh, ww = (height + 1) // 2, (width + 1) // 2
@@ -131,7 +201,7 @@ class StreamPipeline:
         e = len(self.estimators)
         zeros = torch.zeros((batch, height, width), dtype=torch.float32, device=dev)
         return StreamState(
-            prev_cache=frame_cache(zeros, self.flow_params),
+            prev_cache=self._make_cache(zeros),
             warm_uv=tuple(
                 torch.zeros((batch, wh, ww), dtype=torch.float32, device=dev)
                 for _ in range(2)
@@ -207,7 +277,8 @@ class StreamPipeline:
         tree = (field, tuple(state.rot), tuple(state.pos), tuple(draws), tuple(state.est),
                 values)
         inputs = tuple(_leaves(tree))
-        gkey = (type(field).__name__, tuple((tuple(x.shape), x.dtype) for x in inputs), names)
+        gkey = (str(inputs[0].device), type(field).__name__,
+                tuple((tuple(x.shape), x.dtype) for x in inputs), names)
         if gkey not in self._graphs:
 
             def fn(*xs):
@@ -234,14 +305,26 @@ class StreamPipeline:
         (B, 512, 7) indices with (B, 512, 7) uniforms for its chained
         field, at their defaults); parity tests inject JAX's.
         """
+        if self._rows:
+            h, w = gray[0].shape[-2:] if isinstance(gray, RowShards) else gray.shape[-2:]
+            gw, gh = self.grid_wh or grid_size_for(w, h)
+            return self._sharded_step("step_from_frames", state, gray, generator, props,
+                                      draws, gh * gw, {})
         if gray.device.type != self.device.type:
             raise ValueError(f"frames on {gray.device}, pipeline on {self.device}")
         h, w = gray.shape[-2], gray.shape[-1]
         plan = self._grid_plan(h, w)
-        (u, v), warm, new_cache = dense_flow_warm(
-            state.prev_cache.pyr[0], gray, self.flow_params, warm=state.warm_uv,
-            prev_cache=state.prev_cache, grid_plan=plan, plain=self.plain,
-        )
+        if self._band_mesh is not None:
+            (u, v), warm = dense_flow_warm_spatial(
+                state.prev_cache.pyr[0], gray, self.flow_params, state.warm_uv,
+                self._band_mesh, plain=self.plain,
+            )
+            new_cache = self._make_cache(gray)
+        else:
+            (u, v), warm, new_cache = dense_flow_warm(
+                state.prev_cache.pyr[0], gray, self.flow_params, warm=state.warm_uv,
+                prev_cache=state.prev_cache, grid_plan=plan, plain=self.plain,
+            )
         hp = state.has_prev[:, None, None]
         u = u * hp
         v = v * hp
@@ -299,6 +382,10 @@ class StreamPipeline:
         (B, 218, 5), libmv a pair of (B, 512, 7) at their defaults); parity
         tests inject JAX's.  ``flow`` and ``grid`` come out empty,
         (B, 0, 0, 2)."""
+        if self._rows:
+            cap = (sparse[0] if isinstance(sparse, RowShards) else sparse).capacity
+            return self._sharded_step("step_from_flow", state, sparse, generator, props,
+                                      draws, cap, {"dense": False})
         if sparse.mask.device.type != self.device.type:
             raise ValueError(f"flow on {sparse.mask.device}, pipeline on {self.device}")
         lead = sparse.mask.shape[:-1]
@@ -314,6 +401,40 @@ class StreamPipeline:
             flow=empty, grid=empty, rot=rot, pos=pos, delta_rot=dr, delta_tr=dt,
             detection=detection,
         )
+
+    # -- sharded steps -------------------------------------------------------
+
+    def _split(self, x) -> RowShards:
+        """``x`` split into the mesh's rows, unless it already is."""
+        return x if isinstance(x, RowShards) else shard_put(x, self.shard)
+
+    def _sharded_step(self, method: str, state: RowShards, x, generator, props, draws,
+                      n: int, draw_kw: dict):
+        """``method`` run by every row on its rows of ``x`` and ``state``.
+        Missing draws are made for the whole batch on the first device
+        (``n`` points per stream), exactly as the unsharded step makes
+        them, then split.  Nothing here waits for a device, so rows on
+        different cards run at once.  Returns the per-row states and the
+        outputs gathered on the mesh's first device."""
+        rows = self._split(x)
+        if draws is None:
+            lead = (sum(_leaves(r)[0].shape[0] for r in rows),)
+            draws = tuple(
+                None if est.draw is None
+                else est.draw(generator, lead, n, self.device, **draw_kw)
+                for est in self.estimators
+            )
+        results = [getattr(row, method)(s, xr, props=props, draws=d)
+                   for row, s, xr, d in zip(self._rows, state, rows, self._split(draws))]
+        self.graph_replays = sum(row.graph_replays for row in self._rows)
+        self.eager_runs = sum(row.eager_runs for row in self._rows)
+        return (RowShards(r[0] for r in results),
+                gather(RowShards(r[1] for r in results), self.shard))
+
+    def gather_state(self, state) -> StreamState:
+        """A sharded pipeline's per-row state as one :class:`StreamState`
+        on the mesh's first device (the state itself when unsharded)."""
+        return gather(state, self.shard) if self._rows else state
 
     def scan_frames(
         self, state: StreamState, grays: torch.Tensor,
@@ -415,19 +536,26 @@ class _CapturedCall:
     (the next replay overwrites the static ones)."""
 
     def __init__(self, fn, inputs):
-        dev = inputs[0].device
-        self.inputs = tuple(x.clone() for x in inputs)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            fn(*self.inputs)  # warm-up: lazily built constants and caches
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.outputs = fn(*self.inputs)
+        # Capture and replay with the inputs' card current, so that the
+        # side stream, the capture stream and every launch in ``fn`` belong
+        # to that card.  The capture runs on the side stream: the default
+        # capture stream of ``torch.cuda.graph`` is made once per process,
+        # on the card current at the first capture.
+        self.device = inputs[0].device
+        with torch.cuda.device(self.device):
+            self.inputs = tuple(x.clone() for x in inputs)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                fn(*self.inputs)  # warm-up: lazily built constants and caches
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, stream=side):
+                self.outputs = fn(*self.inputs)
 
     def __call__(self, inputs):
-        for static, x in zip(self.inputs, inputs):
-            static.copy_(x)
-        self.graph.replay()
-        return _clone(self.outputs)
+        with torch.cuda.device(self.device):
+            for static, x in zip(self.inputs, inputs):
+                static.copy_(x)
+            self.graph.replay()
+            return _clone(self.outputs)

@@ -60,7 +60,7 @@ def main() -> None:
             grid = pipe.step_from_frames(st1, frames[1], gen)[1].grid
         n = grid.shape[1] * grid.shape[2]
         draws = tuple(e.draw(gen, (b,), n, dev) for e in pipe.estimators)
-        replay_ms = cs.time_ms(torch, lambda: pipe._run_consumers(st, grid, draws, None), 10)
+        replay_ms = cs.time_ms(torch, lambda: pipe._run_consumers(st, grid, draws, None), 10)[0]
         pipe._consume(st.est, st.rot, st.pos, grid, draws)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

@@ -15,6 +15,7 @@ version divides: near-ties may flip.  What the CUDA compiler makes of the
 sources is tested on the card only (``-m cuda``).
 """
 
+import contextlib
 import ctypes
 import re
 import shutil
@@ -82,6 +83,7 @@ def emulated(emulated_library, monkeypatch):
     monkeypatch.setattr(build, "on_cuda", lambda name, t: True)
     monkeypatch.setattr(build, "require_cuda_f32", lambda *tensors: None)
     monkeypatch.setattr(build, "stream_ptr", lambda device: 0)
+    monkeypatch.setattr(build, "on_device", lambda device: contextlib.nullcontext())
 
 
 def _t(x):
