@@ -92,7 +92,19 @@ Phases, each printing its own line; any failure exits non-zero:
    three steps (median of 3 captures x PAR_STEPS steps, with the host's
    enqueue time); a world-size-1 NCCL group, and with two or more cards two NCCL
    processes (one card each) and a launch and a graph replay on cuda:1;
-11. timing: ms/step of the serving step at B=1, 4, 8, of the all-estimator
+11. matrix: the evaluation matrix (``ofps_torch.apps.evaluate_matrix``) on
+   the JAX package's gate clips 0 and 5 (288x288, 10 frames) as B=2
+   streams, its codec route fixed by MATRIX_CODEC and printed first: the
+   four sources' fields (the cv step's flow launches per step at the
+   clips' 4-level pyramid, MATRIX_LAUNCHES), the cv step's kernels against
+   their plain versions at those shapes, each step from the same inputs
+   (MISMATCH_PX, MAX_MISMATCH_SHARE), every source x configuration through
+   one ``StreamPipeline`` per configuration, each cell that JAX's
+   tests/test_evaluate_matrix.py gates under its ceiling (MATRIX_GATES),
+   libmv 8-point's ATE and direction on translation path 0, and the card
+   against the port on the CPU on scripts/check_backend_agreement.py's
+   cells with the same draws (AGREE_DEG); prints its own seconds;
+12. timing: ms/step of the serving step at B=1, 4, 8, of the all-estimator
    step at B=8 and of the cv step for both algorithms, kernel and plain
    paths; the consumers' graph at B=4 with almeida alone, homography alone
    and both, and at B=8 with multiview alone, libmv alone and all four,
@@ -243,6 +255,49 @@ SPATIAL_DEG = 0.05
 # of levels 4..1.
 BAND_LAUNCHES = {"flow_refine": 4, "flow_refine_small": 3, "guard_select": 1,
                  "median3x3_uv": 4}
+
+# The "matrix" phase: the evaluation matrix (ofps_torch.apps.evaluate_matrix)
+# on the JAX package's gate clips 0 and 5 as B=2 streams, all four sources
+# and all eight configurations over its 10 frames.  MATRIX_CODEC is fixed
+# by what the H100 host has: no FFmpeg (no libav* headers or libraries;
+# PERF.md), so the "av" source reads the committed .mvec vectors and
+# "block"/"rlof" run the cv step on the rendered frames.
+MATRIX_CODEC = "mvec"
+MATRIX_CLIPS = (0, 5)
+# JAX's ceilings, mean deg/frame per (source, clip) and configuration: a
+# copy of tests/test_evaluate_matrix.py:43-75 (GATES), which imports JAX.
+MATRIX_GATES = {
+    ("gt-mv", 0): {"almeida": 1e-3, "almeida-ransac": 1e-3, "homography-ransac": 0.02,
+                   "multiview-lmeds": 0.06, "libmv-7pt": 0.02},
+    ("block", 0): {"almeida": 0.12, "almeida-ransac": 0.021, "homography-ransac": 0.055,
+                   "multiview-lmeds": 0.03},
+    ("block", 5): {"almeida": 0.017, "almeida-ransac": 0.016, "homography-ransac": 0.03,
+                   "multiview-lmeds": 0.028},
+    ("av", 0): {"almeida": 0.012, "almeida-ransac": 0.018, "homography-ransac": 0.09,
+                "multiview-ransac": 0.035, "libmv-7pt": 0.030},
+    ("av", 5): {"almeida": 0.010, "almeida-ransac": 0.015, "homography-ransac": 0.09},
+    ("rlof", 0): {"almeida": 0.025, "almeida-ransac": 0.021},
+    ("rlof", 5): {"almeida": 0.008, "almeida-ransac": 0.013},
+}
+# test_translation_matrix_cell's bars: translation path 0 with libmv
+# 8-point, ATE under 10% of the path, direction error under 11 deg.
+MATRIX_ATE_PCT, MATRIX_DIR_DEG = 10.0, 11.0
+# The card against the port on the CPU, same fields and draws (made on the
+# CPU): scripts/check_backend_agreement.py's cells (gt-mv, clips 0 and 5)
+# and its tolerance, in deg/frame.
+AGREE_CONFIGS = ("almeida-ransac", "homography-ransac", "multiview-ransac", "libmv-7pt",
+                 "libmv-8pt")
+AGREE_DEG = 0.01
+# Flow launches per cv step on a 288x288 clip with 4 levels.  Block
+# matching: 36x36 (coarsest) two s=6 sweeps and the guard, 72x72 and
+# 144x144 the 2-D sweep (under fuse_min_pixels), 288x288 the axis-separable
+# refine; the medians of levels 3 and 2 ride in the refines of levels 2
+# and 1.  Robust LK: 3 warps per level and init, the coarsest level twice
+# (warm and zero) and the guard.
+MATRIX_LAUNCHES = {
+    "block": {"flow_refine": 1, "flow_refine_small": 4, "median3x3_uv": 2},
+    "rlof": {"warp_bilinear": 15},
+}
 
 # Roofline of one H100 SXM (published, dense, at 700 W): HBM3 bytes/s and
 # float32 operations/s outside the tensor cores.
@@ -1803,6 +1858,153 @@ def run_parallel(torch, device, counters, smi):
             "distributed": notes}, launches
 
 
+def to_device(x, device):
+    """A draw (a tensor, a tuple of them, or None) on ``device``."""
+    if isinstance(x, tuple):
+        return tuple(to_device(v, device) for v in x)
+    return None if x is None else x.to(device)
+
+
+def cv_kernel_vs_plain(torch, device, frames, use_rlof: bool):
+    """The cv step on a clip's frames (T+1, H, W) on the kernels and on
+    their plain versions, each step from the same inputs (the plain step
+    takes the kernel path's warm start): (share of flow pixels, share of
+    grid entries off by more than MISMATCH_PX, max grid |diff| px, valid
+    cells equal)."""
+    from ofps_torch.apps import evaluate_matrix as em
+
+    h, w = frames.shape[-2:]
+    steps = [em.cv_step(h, w, use_rlof, device, plain) for plain in (False, True)]
+    gray = torch.from_numpy(frames.astype("float32")).to(device)
+    scale = torch.tensor([w, h], dtype=torch.float32, device=device)
+    flow = torch.zeros((h, w, 2), dtype=torch.float32, device=device)
+    f_off, g_off, n_f, n_g, g_max, same_valid = 0, 0, 0, 0, 0.0, True
+    for t in range(1, gray.shape[0]):
+        (fk, gk, vk), (fp, gp, vp) = (s(gray[t - 1], gray[t], flow) for s in steps)
+        fd = (fk - fp).abs().max(dim=-1).values
+        gd = ((gk - gp) * scale).abs()
+        f_off += int((fd > MISMATCH_PX).sum().item())
+        g_off += int((gd > MISMATCH_PX).sum().item())
+        n_f, n_g = n_f + fd.numel(), n_g + gd.numel()
+        g_max = max(g_max, gd.max().item())
+        same_valid = same_valid and bool(torch.equal(vk, vp))
+        flow = fk
+    return f_off / n_f, g_off / n_g, g_max, same_valid
+
+
+def run_matrix(torch, device, counters, smi):
+    """The "matrix" phase (the module docstring says what it checks);
+    returns (its results, {path: flow launches})."""
+    from ofps_torch.apps import evaluate_matrix as em
+
+    t_phase = time.perf_counter()
+    clips, batch = list(MATRIX_CLIPS), len(MATRIX_CLIPS)
+    phase("matrix", f"codec route {MATRIX_CODEC!r} (fixed: FFmpeg is absent on the H100 "
+          f"host; av from the committed .mvec vectors, block and rlof on the rendered "
+          f"frames) | clips {clips} as B={batch} streams, {em.H}x{em.W}, {em.T} frames, "
+          f"grid {em.GRID}, cv levels {em.CV_LEVELS}")
+    cam, schedules = em.camera(), em.make_schedules()
+    per_clip, launches = {}, {}
+    for source in em.SOURCES:
+        def build(src=source):
+            return [em.source_fields(src, ci, cam, schedules, device, MATRIX_CODEC)
+                    for ci in clips]
+
+        if source in MATRIX_LAUNCHES:
+            per_clip[source], counts = count_launches(torch, counters, build)
+            path = f"matrix_{source}"
+            launches[path] = {k: counts[k] for k in (*MATRIX_LAUNCHES[source], "guard_select")}
+            check_per_step(path, launches[path], MATRIX_LAUNCHES[source])
+            if launches[path]["guard_select"] != em.T * batch:
+                fail(f"{path}: {launches[path]['guard_select']} guarded steps, expected "
+                     f"{em.T * batch}")
+        else:
+            per_clip[source] = build()
+        sizes = [[0 if f is None else len(f[0]) for f in fl] for fl in per_clip[source]]
+        phase("matrix", f"source {source}: vectors per frame {sizes}"
+              + (f", flow launches {launches[f'matrix_{source}']} over {em.T * batch} cv "
+                 f"steps" if source in MATRIX_LAUNCHES else ""))
+        if min(min(x) for x in sizes) < em.MIN_VECTORS:
+            fail(f"matrix: source {source} gave a frame with fewer than {em.MIN_VECTORS} "
+                 "vectors")
+
+    # The kernels at the clips' shapes against their plain versions,
+    # before anything is timed.
+    cv_check = {}
+    for source in MATRIX_LAUNCHES:
+        worst = [0.0, 0.0, 0.0]
+        for ci in clips:
+            f_share, g_share, g_max, same_valid = cv_kernel_vs_plain(
+                torch, device, em.clip_frames(cam, schedules, ci), source == "rlof")
+            worst = [max(a, b) for a, b in zip(worst, (f_share, g_share, g_max))]
+            if not same_valid:
+                fail(f"matrix: {source} clip {ci}: valid cells differ, kernel vs plain")
+        cv_check[source] = dict(zip(("flow_share", "grid_share", "grid_max_px"), worst))
+        phase("matrix", f"{source} kernel path vs plain path, every step from the same "
+              f"inputs: flow pixels off by >{MISMATCH_PX} px {worst[0]:.2e}, grid entries "
+              f"{worst[1]:.2e} (max {worst[2]:.3e} px), valid cells equal")
+        if max(worst[:2]) >= MAX_MISMATCH_SHARE:
+            fail(f"matrix: {source} kernels disagree with their plain versions at the "
+                 "clips' shapes")
+
+    # 1. every source x configuration, gated where JAX gates.
+    fields = {s: em.stack_fields(per_clip[s], device) for s in em.SOURCES}
+    results = em.run_matrix(clips, device, fields=fields,
+                            log=lambda m: phase("matrix", m))
+    over = [f"{src} clip{ci} {lab} {results[(src, ci, lab)][0]:.5f} > {ceil}"
+            for (src, ci), gates in MATRIX_GATES.items() for lab, ceil in gates.items()
+            if not results[(src, ci, lab)][0] <= ceil]
+    n_gated = sum(len(g) for g in MATRIX_GATES.values())
+    phase("matrix", f"{n_gated} gated cells against JAX's ceilings: "
+          f"{'all under' if not over else over}")
+    if over:
+        fail(f"matrix: cells over JAX's ceilings: {over}")
+    ate_pct, dir_deg, rot_deg = em.eval_translation_path(
+        cam, em.translation_cloud(cam), *em.make_translation_paths()[0], 8, device)
+    phase("matrix", f"translation path 0, libmv-8pt: ATE {ate_pct:.3f}% of the path "
+          f"(< {MATRIX_ATE_PCT}), direction {dir_deg:.3f} deg (< {MATRIX_DIR_DEG}), "
+          f"rotation {rot_deg:.5f} deg")
+    if not (ate_pct < MATRIX_ATE_PCT and dir_deg < MATRIX_DIR_DEG):
+        fail("matrix: translation path 0 over test_translation_matrix_cell's bars")
+
+    # 2. the card against the port on the CPU: gt-mv, the same draws.
+    cpu = torch.device("cpu")
+    flows_cpu = em.stack_fields(per_clip["gt-mv"], cpu)
+    n = flows_cpu.capacity
+    truths = [em._truth_quats(schedules[ci]) for ci in clips]
+    agree, t_cpu = {}, 0.0
+    for label in AGREE_CONFIGS:
+        pipe_c = em.make_pipeline(label, cam, cpu)
+        est = pipe_c.estimators[0]
+        gen = torch.Generator().manual_seed(em.SEED)
+        draws = [(est.draw(gen, (batch,), n, cpu, dense=False),) for _ in range(em.T)]
+        t0 = time.perf_counter()
+        rots_c, _ = em.run_config(pipe_c, flows_cpu, draws=draws)
+        t_cpu += time.perf_counter() - t0
+        rots_g, _ = em.run_config(em.make_pipeline(label, cam, device), fields["gt-mv"],
+                                  draws=[to_device(d, device) for d in draws])
+        for ci, eg, ec in zip(clips, em.mean_errors_deg(rots_g, truths),
+                              em.mean_errors_deg(rots_c, truths)):
+            agree[f"{label}/clip{ci}"] = {"card": eg, "cpu": ec, "diff": abs(eg - ec)}
+    worst = max(v["diff"] for v in agree.values())
+    phase("matrix", f"card vs the port on the CPU (gt-mv, same draws; the CPU half "
+          f"{t_cpu:.1f} s): " + ", ".join(
+              f"{k} {v['card']:.5f}/{v['cpu']:.5f}" for k, v in agree.items())
+          + f"; max |diff| {worst:.2e} deg/frame (tolerance {AGREE_DEG})")
+    if worst > AGREE_DEG:
+        fail("matrix: the card and the CPU disagree")
+    seconds = time.perf_counter() - t_phase
+    phase("matrix", f"phase seconds {seconds:.1f} | {smi}")
+    return {
+        "codec_route": MATRIX_CODEC, "clips": clips,
+        "cells": {f"{src}/clip{ci}/{lab}": {"deg_per_frame": err, "ms_per_frame": ms}
+                  for (src, ci, lab), (err, ms) in results.items()},
+        "gated_cells": n_gated, "ate_path0_8pt": {"ate_pct": ate_pct, "dir_deg": dir_deg},
+        "agreement": agree, "agreement_cpu_s": t_cpu, "cv_kernel_vs_plain": cv_check,
+        "seconds": seconds,
+    }, launches
+
+
 def consumer_kernels(torch, pipe, state, grid, draws):
     """CUDA kernels and their summed device ms in one eager ``_consume``
     (the calls its CUDA graph replays), from ``torch.profiler``; (None,
@@ -2049,7 +2251,12 @@ def main() -> None:
     parallel, launches_by_path["sharded"] = run_parallel(torch, device, counters, smi)
     torch.cuda.empty_cache()
 
-    # 11. timing
+    # 11. the evaluation matrix on clips 0 and 5, the card against the CPU.
+    matrix, matrix_launches = run_matrix(torch, device, counters, smi)
+    launches_by_path.update(matrix_launches)
+    torch.cuda.empty_cache()
+
+    # 12. timing
     from ofps_torch.decoders.cv import CvFlowStep
     from ofps_torch.ops.flow_pyramid import dense_flow_warm
 
@@ -2193,7 +2400,7 @@ def main() -> None:
         "consumers_ms": consumers_ms,
         "consumer_kernels": consumer_kernel_counts,
         "cv_step_ms": cv_ms, "codec": codec, "apps": apps, "parallel": parallel,
-        "card": smi}))
+        "matrix": matrix, "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -43,6 +43,8 @@ _SIGNATURES = {
     "ofps_av_next": (_I, [_P, _FP, _FP, _I, _IP, ctypes.c_char_p, _I]),
     # path, w, h, frames, gop, dx, dy, noise, starts, stops, n_events
     "ofps_av_encode_test_events": (_I, [ctypes.c_char_p] + [_I] * 4 + [_F, _F, _I, _IP, _IP, _I]),
+    # path, w, h, frames, gop, bit_rate, pixels
+    "ofps_av_encode_gray": (_I, [ctypes.c_char_p, _I, _I, _I, _I, ctypes.c_int64, ctypes.c_char_p]),
 }
 
 
@@ -99,6 +101,23 @@ def encode_test_video(
     )
     if rc != 0:
         raise RuntimeError(f"test-clip encoder failed ({rc})")
+
+
+def encode_gray_video(path: str, frames, gop: int = 30, bit_rate: int = 0) -> None:
+    """Encode grayscale frames to an MPEG-4 clip.
+
+    ``frames``: (N, H, W) uint8 (anything array-like is converted).  No
+    B-frames, so every inter frame carries forward codec motion vectors:
+    rendered or captured content becomes a codec-MV source for the "av"
+    decoder.  ``bit_rate`` 0 selects the default (w*h*8 bps).
+    """
+    arr = np.ascontiguousarray(np.asarray(frames, dtype=np.uint8))
+    if arr.ndim != 3:
+        raise ValueError(f"frames must be (N, H, W) uint8, got {arr.shape}")
+    n, h, w = arr.shape
+    rc = library().ofps_av_encode_gray(path.encode(), w, h, n, gop, int(bit_rate), arr.tobytes())
+    if rc != 0:
+        raise RuntimeError(f"gray-frame encoder failed ({rc})")
 
 
 @register("av")

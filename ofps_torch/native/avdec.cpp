@@ -9,7 +9,8 @@
 // §2.5): the device consumes the MV fields or the decoded frames.
 //
 // Also exposes a tiny MPEG-4 test-clip encoder so the test suite can
-// round-trip codec motion vectors without shipping video assets.
+// round-trip codec motion vectors without shipping video assets, and an
+// encoder of caller-provided grayscale frames (the evaluation clips).
 //
 // Build: ofps_torch/decoders/av.py runs g++ -shared on this file at first
 // use, linking the system libavformat/avcodec/avutil/swscale.
@@ -371,6 +372,29 @@ int ofps_av_encode_test_events(const char *path, int w, int h, int nframes,
                     stops};
   return encode_clip(path, w, h, nframes, gop, (int64_t)w * h * 8,
                      ofps_fill_test_clip, &g);
+}
+
+// Caller-provided grayscale frames (row-major uint8, nframes*h*w bytes) ->
+// MPEG-4 clip whose inter frames carry codec motion vectors: rendered or
+// captured content (the evaluation clips) becomes a codec-MV source.
+// bit_rate <= 0 selects the default w*h*8 (same as the test encoder).
+struct OfpsGrayFrames {
+  const uint8_t *p;
+  int w, h;
+};
+
+static void ofps_fill_gray(void *user, int t, uint8_t *dst, int ls) {
+  auto *g = (OfpsGrayFrames *)user;
+  const uint8_t *src = g->p + (size_t)t * g->w * g->h;
+  for (int y = 0; y < g->h; y++)
+    memcpy(dst + (size_t)y * ls, src + (size_t)y * g->w, g->w);
+}
+
+int ofps_av_encode_gray(const char *path, int w, int h, int nframes, int gop,
+                        int64_t bit_rate, const uint8_t *frames) {
+  OfpsGrayFrames g{frames, w, h};
+  if (bit_rate <= 0) bit_rate = (int64_t)w * h * 8;
+  return encode_clip(path, w, h, nframes, gop, bit_rate, ofps_fill_gray, &g);
 }
 
 }  // extern "C"
