@@ -104,7 +104,17 @@ Phases, each printing its own line; any failure exits non-zero:
    libmv 8-point's ATE and direction on translation path 0, and the card
    against the port on the CPU on scripts/check_backend_agreement.py's
    cells with the same draws (AGREE_DEG); prints its own seconds;
-12. timing: ms/step of the serving step at B=1, 4, 8, of the all-estimator
+12. samples: BASELINE's sample configs (``ofps_torch.apps.samples
+   --no-video`` into a temporary directory; no FFmpeg on the H100 host):
+   ``run-config`` on ``synthetic_almeida_gt.json`` and
+   ``synthetic_all_gt.json`` through ``cli.main`` on the card and with
+   ``--device cpu`` (each estimator's mean rotation error under its bar,
+   SAMPLES_ALMEIDA_DEG / SAMPLES_EST_DEG, the card within AGREE_DEG of the
+   CPU, one graph capture and one replay per frame and no eager step on
+   the card, the stages' ms per frame), and ``basic_detect``'s detector
+   and settings on the committed ``detect.mvec`` (its ranges equal to
+   SAMPLES_DETECT_RANGES, what the CPU finds); prints its own seconds;
+13. timing: ms/step of the serving step at B=1, 4, 8, of the all-estimator
    step at B=8 and of the cv step for both algorithms, kernel and plain
    paths; the consumers' graph at B=4 with almeida alone, homography alone
    and both, and at B=8 with multiview alone, libmv alone and all four,
@@ -298,6 +308,22 @@ MATRIX_LAUNCHES = {
     "block": {"flow_refine": 1, "flow_refine_small": 4, "median3x3_uv": 2},
     "rlof": {"warp_bilinear": 15},
 }
+
+# The "samples" phase: BASELINE's sample configs, made by
+# ``python -m ofps_torch.apps.samples --no-video`` (FFmpeg is absent on the
+# H100 host), through the command line on the card and on the CPU.  Mean
+# rotation error per estimator, deg/frame: almeida's float32 floor and
+# every estimator's bar; the card against the port on the CPU within the
+# matrix phase's agreement tolerance (AGREE_DEG).
+SAMPLES_TRACKING = ("synthetic_almeida_gt.json", "synthetic_all_gt.json")
+SAMPLES_ALMEIDA_DEG = 1e-4
+SAMPLES_EST_DEG = 0.01
+# basic_detect's detector and settings on the committed vectors of its
+# clip (the port's motion-extract of detect.avi): the ranges that
+# tests/test_torch_samples.py asserts the CPU finds from the clip and from
+# these vectors.
+SAMPLES_DETECT_MVEC = "ofps_torch/eval_data/detect.mvec"
+SAMPLES_DETECT_RANGES = [(1, 29)]
 
 # Roofline of one H100 SXM (published, dense, at 700 W): HBM3 bytes/s and
 # float32 operations/s outside the tensor cores.
@@ -2005,6 +2031,115 @@ def run_matrix(torch, device, counters, smi):
     }, launches
 
 
+def run_samples(torch, device, counters, smi):
+    """The "samples" phase (the module docstring says what it checks);
+    returns its results."""
+    import contextlib
+    import csv
+    import io
+    import re
+    import tempfile
+
+    from ofps_torch.apps import cli, samples
+
+    t_phase = time.perf_counter()
+    out = {}
+
+    def run_config(path, args=()):
+        """``cli.main`` on a config: (exit code, printed lines)."""
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            rc = cli.main([*args, "run-config", path])
+        return rc, said.getvalue().strip().splitlines()
+
+    def rows(path):
+        with open(path, newline="") as f:
+            return list(csv.reader(f))
+
+    def stage_ms(path, stage):
+        """(median after the first frame, first frame) ms of a stage."""
+        r = rows(path)
+        ms = [float(x[r[0].index(stage)]) for x in r[1:]]
+        return sorted(ms[1:])[len(ms[1:]) // 2], ms[0]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = samples.main([tmp, "--no-video"])
+        if rc != 0:
+            fail("samples: the generator failed")
+        frames = len(samples.DELTAS_DEG) + 1
+        for name in SAMPLES_TRACKING:
+            cfg = json.loads(Path(tmp, name).read_text())
+            names = [e["name"] for e in cfg["estimators"]]
+            res = {}
+            for where, args in (("card", ("--device", str(device))), ("cpu", ("--device", "cpu"))):
+                # The generated config with a per-frame times CSV added.
+                perf_csv = str(Path(tmp, f"perf_{where}.csv"))
+                run = dict(cfg, output=dict(cfg["output"], perf_csv=perf_csv))
+                Path(tmp, f"run_{where}.json").write_text(json.dumps(run))
+                (rc, lines), counts = count_launches(
+                    torch, counters, lambda: run_config(str(Path(tmp, f"run_{where}.json")), args))
+                stats = {n: rows(cfg["output"]["stats_csv_prefix"] + n + ".csv") for n in names}
+                err = {}
+                for n, r in stats.items():
+                    col = r[0].index("error")
+                    e = [float(x[col]) for x in r[1:] if x[col]]
+                    err[n] = math.degrees(sum(e) / len(e)) if len(r) == frames + 1 else math.inf
+                graphs = re.search(r"consumers: (\d+) CUDA graph\(s\), (\d+) replays, (\d+) eager",
+                                   "\n".join(lines))
+                res[where] = {
+                    "rc": rc, "deg_per_frame": err,
+                    "graphs": [int(g) for g in graphs.groups()] if graphs else None,
+                    "estimate_ms": stage_ms(perf_csv, "estimate"),
+                    "decode_ms": stage_ms(perf_csv, "decode"),
+                    "flow_launches": sum(counts.values()),
+                    "printed": [x.strip() for x in lines if "avg" in x],
+                }
+            card, cpu = res["card"], res["cpu"]
+            diff = {n: abs(card["deg_per_frame"][n] - cpu["deg_per_frame"][n]) for n in names}
+            out[name] = {**res, "diff_deg": diff}
+            phase("samples", f"run-config {name} ({'+'.join(names)}, {frames} frames of "
+                  f"the synthetic rotation, B=1): rc card {card['rc']} cpu {cpu['rc']}; mean "
+                  f"rotation error deg/frame card/cpu "
+                  + ", ".join(f"{n} {card['deg_per_frame'][n]:.6f}/{cpu['deg_per_frame'][n]:.6f}"
+                              for n in names)
+                  + f" (bars: almeida {SAMPLES_ALMEIDA_DEG}, each {SAMPLES_EST_DEG}, card vs "
+                  f"cpu {AGREE_DEG}); consumers on the card (graphs, replays, eager) "
+                  f"{card['graphs']}, flow kernel launches {card['flow_launches']} (.mvec "
+                  f"input: none expected); stages ms/frame, median after the first frame "
+                  f"(first frame): estimate card {card['estimate_ms'][0]:.3f} "
+                  f"({card['estimate_ms'][1]:.1f}) cpu {cpu['estimate_ms'][0]:.3f} "
+                  f"({cpu['estimate_ms'][1]:.1f}), decode card {card['decode_ms'][0]:.3f}; "
+                  f"printed {card['printed']} | {smi}")
+            if not (card["rc"] == cpu["rc"] == 0 and card["graphs"] == [1, frames, 0]):
+                fail(f"samples: {name} failed, or did not run one graph replay per frame")
+            for n in names:
+                bar = SAMPLES_ALMEIDA_DEG if n == "almeida" else SAMPLES_EST_DEG
+                if not (card["deg_per_frame"][n] < bar and cpu["deg_per_frame"][n] < bar
+                        and diff[n] <= AGREE_DEG):
+                    fail(f"samples: {name} {n} misses its bar or the CPU")
+
+        # basic_detect's detector and settings on the committed vectors.
+        det = samples.sample_configs(tmp)["basic_detect.json"]
+        det["decoder"]["input"] = str(HERE / SAMPLES_DETECT_MVEC)
+        det["output"] = {"ranges_csv": str(Path(tmp, "ranges.csv")),
+                         "perf_csv": str(Path(tmp, "det_perf.csv"))}
+        Path(tmp, "det.json").write_text(json.dumps(det))
+        rc, lines = run_config(str(Path(tmp, "det.json")), ("--device", str(device)))
+        ranges = [tuple(int(v) for v in r) for r in rows(det["output"]["ranges_csv"])]
+        det_ms = stage_ms(det["output"]["perf_csv"], "detect")
+        out["basic_detect"] = {"rc": rc, "ranges": ranges, "detect_ms": det_ms}
+        phase("samples", f"basic_detect's block_motion {det['detector']['properties']} and "
+              f"settings {det['settings']} on {SAMPLES_DETECT_MVEC}: rc {rc}, printed {lines}, "
+              f"ranges {ranges} (want {SAMPLES_DETECT_RANGES}); detect ms/frame median after "
+              f"the first frame {det_ms[0]:.3f} (first {det_ms[1]:.1f}) | {smi}")
+        if not (rc == 0 and ranges == SAMPLES_DETECT_RANGES
+                and lines == [f"processed 30 frames; motion ranges: {SAMPLES_DETECT_RANGES}"]):
+            fail("samples: basic_detect's ranges differ from the CPU's")
+    out["seconds"] = time.perf_counter() - t_phase
+    phase("samples", f"phase seconds {out['seconds']:.1f} | {smi}")
+    return out
+
+
 def consumer_kernels(torch, pipe, state, grid, draws):
     """CUDA kernels and their summed device ms in one eager ``_consume``
     (the calls its CUDA graph replays), from ``torch.profiler``; (None,
@@ -2256,7 +2391,11 @@ def main() -> None:
     launches_by_path.update(matrix_launches)
     torch.cuda.empty_cache()
 
-    # 12. timing
+    # 12. BASELINE's sample configs through the command line.
+    samples = run_samples(torch, device, counters, smi)
+    torch.cuda.empty_cache()
+
+    # 13. timing
     from ofps_torch.decoders.cv import CvFlowStep
     from ofps_torch.ops.flow_pyramid import dense_flow_warm
 
@@ -2400,7 +2539,7 @@ def main() -> None:
         "consumers_ms": consumers_ms,
         "consumer_kernels": consumer_kernel_counts,
         "cv_step_ms": cv_ms, "codec": codec, "apps": apps, "parallel": parallel,
-        "matrix": matrix, "card": smi}))
+        "matrix": matrix, "samples": samples, "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -105,6 +105,8 @@ def cmd_run_config(args) -> int:
         print(f"processed {res.frames} frames with {[t.name for t in res.tracks]}")
         for stage, s in res.perf.summary().items():
             print(f"  {stage}: avg {s['avg_ms']:.2f} ms over {s['frames']}")
+        print(f"  consumers: {res.graphs} CUDA graph(s), {res.graph_replays} replays, "
+              f"{res.eager_runs} eager runs")
     else:
         print(f"unknown app {app!r} (want 'detection' or 'tracking')", file=sys.stderr)
         return 1

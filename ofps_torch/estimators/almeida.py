@@ -142,7 +142,7 @@ def solve_ypr_ransac(
     num_iters: int,
     inlier_angle_deg,
     num_samples: int,
-    dense: bool = True,
+    dense: bool = False,
     fit_idx: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """RANSAC over (..., N) flows: ``num_iters`` minimal 3-point fits

@@ -113,6 +113,26 @@ def test_solve_ypr_ransac_masked_matches_with_injected_draws(seed):
     assert float(quat_angle_to(r, _t(ref))) < np.deg2rad(0.01)
 
 
+def test_solve_ypr_ransac_defaults_to_masked_as_jax():
+    """Called with JAX's argument list and no ``dense=``, on a field with a
+    third of the points masked, the port samples the valid points as JAX
+    does (JAX's draws injected)."""
+    import inspect
+
+    pos, mot, _ = _rotation_field(8)
+    mask = (np.random.default_rng(18).uniform(size=len(pos)) >= 1 / 3).astype(np.float32)
+    key = jax.random.PRNGKey(8)
+    ref = _j_ransac_masked(key, jnp.asarray(pos), jnp.asarray(mot), jnp.asarray(mask))
+    fit_idx = np.array(jrob.sample_indices(jax.random.split(key)[0], jnp.asarray(mask), 200, 3))
+    flow = TSparse(_t(pos), _t(mot), _t(mask))
+    got = talm.solve_ypr_ransac(None, TCam.create(150 / 90, 60.0), flow, 200, 0.05, 1000,
+                                fit_idx=torch.from_numpy(fit_idx))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=QUAT_TOL)
+    default = inspect.signature(talm.solve_ypr_ransac).parameters["dense"].default
+    assert default == inspect.signature(jalm.solve_ypr_ransac).parameters["dense"].default
+    assert default is False
+
+
 def test_estimator_instance_matches_lsq():
     """The registered estimator without RANSAC is the weighted LSQ."""
     from ofps_torch.estimators.base import create_estimator
