@@ -114,7 +114,17 @@ Phases, each printing its own line; any failure exits non-zero:
    the card, the stages' ms per frame), and ``basic_detect``'s detector
    and settings on the committed ``detect.mvec`` (its ranges equal to
    SAMPLES_DETECT_RANGES, what the CPU finds); prints its own seconds;
-13. timing: ms/step of the serving step at B=1, 4, 8, of the all-estimator
+13. bench: the port's benchmark (``python -m ofps_torch.apps.cli --device
+   cuda bench`` at ``bench.py``'s defaults, its JSON record printed on a
+   ``bench ...`` line): every frames/s finite and above 0 and every
+   checksum finite; the flow kernels' launches per step of the bench's flow
+   chain and of its serving step (BENCH_LAUNCHES); then the timing tools:
+   ``bench_estimators`` (to a temporary table), ``profile_pipeline``
+   (BENCH_PROFILE_STAGES), ``profile_libmv``, ``perf_lab`` (base, parts,
+   ablate) and ``check_backend_agreement`` (exit 0: every cell within its
+   0.01 deg/frame); the two profiles at BENCH_PROFILE_ITERS chained calls;
+   prints its own seconds;
+14. timing: ms/step of the serving step at B=1, 4, 8, of the all-estimator
    step at B=8 and of the cv step for both algorithms, kernel and plain
    paths; the consumers' graph at B=4 with almeida alone, homography alone
    and both, and at B=8 with multiview alone, libmv alone and all four,
@@ -324,6 +334,16 @@ SAMPLES_EST_DEG = 0.01
 # these vectors.
 SAMPLES_DETECT_MVEC = "ofps_torch/eval_data/detect.mvec"
 SAMPLES_DETECT_RANGES = [(1, 29)]
+
+# The "bench" phase: the port's benchmark at its defaults, then its timing
+# tools.  Flow launches per step of the bench's flow chain and serving step
+# (1080p, 6 levels: the slice's counts, one guard a step).  The profile
+# scripts' chained calls per window are cut from their defaults (96 and
+# 48): their estimator stages run eagerly, ~10^4 launches a call.
+BENCH_LAUNCHES = {"flow_refine": 4, "flow_refine_small": 3, "median3x3_uv": 4}
+BENCH_LAUNCH_STEPS = 3
+BENCH_PROFILE_STAGES = "flow,densify,almeida,homography,detector,step"
+BENCH_PROFILE_ITERS = {"profile_pipeline": 16, "profile_libmv": 8}
 
 # Roofline of one H100 SXM (published, dense, at 700 W): HBM3 bytes/s and
 # float32 operations/s outside the tensor cores.
@@ -2140,6 +2160,125 @@ def run_samples(torch, device, counters, smi):
     return out
 
 
+def run_bench(torch, device, counters, smi):
+    """The "bench" phase (the module docstring says what it checks);
+    returns (its results, {path: flow launches})."""
+    import contextlib
+    import io
+    import tempfile
+
+    from ofps_torch.apps import (
+        bench,
+        bench_estimators,
+        check_backend_agreement,
+        cli,
+        perf_lab,
+        profile_libmv,
+        profile_pipeline,
+    )
+
+    t_phase = time.perf_counter()
+    dev = str(device)
+
+    def num(x, nd: int) -> str:
+        return "n/a" if x is None else f"{x:.{nd}f}"
+
+    def tool(main, argv, tail: int = 1):
+        """``main(argv)`` with its standard output captured: (exit code,
+        the JSON object on its ``tail``-th line from the end)."""
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            rc = main(argv)
+        return rc, json.loads(said.getvalue().strip().splitlines()[-tail])
+
+    # 1. the benchmark through the command line, at bench.py's defaults.
+    t0 = time.perf_counter()
+    rc, rec = tool(cli.main, ["--device", dev, "bench"])
+    bench_s = time.perf_counter() - t0
+    print("bench " + json.dumps(rec), flush=True)
+    d = rec["detail"]
+    fps = [rec["value"], rec["vs_baseline"], rec["pipeline_all4_fps_per_chip"],
+           *rec["pipeline_1080p_fps_per_chip"].values()]
+    sums = [*d["flow"]["checksum"], *d["all4"]["checksum"],
+            *(c for p in d["pipeline"].values() for c in p["checksum"])]
+    phase("bench", f"cli bench rc {rc} in {bench_s:.1f} s: flow {rec['value']} frames/s "
+          f"(median {d['flow']['fps_median']:.2f}; x{rec['vs_baseline']} the reference's "
+          f"Farneback), serving step {rec['pipeline_1080p_fps_per_chip']} (median "
+          f"{ {k: round(p['fps_median'], 2) for k, p in d['pipeline'].items()} }), all four "
+          f"B=8 {rec['pipeline_all4_fps_per_chip']} (median {d['all4']['fps_median']:.2f}); "
+          f"peak {d.get('max_memory_allocated_bytes', 0) / 2**30:.2f} GiB | {smi}")
+    if rc != 0 or set(rec["pipeline_1080p_fps_per_chip"]) != {"b1", "b4", "b8"}:
+        fail("bench: the benchmark failed or lacks bench.py's keys")
+    if not all(math.isfinite(x) and x > 0 for x in fps) or not all(map(math.isfinite, sums)):
+        fail(f"bench: a frames/s is not finite and positive, or a checksum not finite: {fps}")
+
+    # 2. flow launches per step of the bench's flow chain and serving step.
+    launches = {}
+    i1, i2 = bench.make_inputs(1, H, W, device)
+    run_flow = bench.build_runner(1, H, W, BENCH_LAUNCH_STEPS)
+    run_step = bench.build_pipeline_runner(1, H, W, BENCH_LAUNCH_STEPS, device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    for path, fn in (("bench_flow", lambda: run_flow(i1, i2).item()),
+                     ("bench_step", lambda: run_step(i1, gen).item())):
+        _, counts = count_launches(torch, counters, fn)
+        launches[path] = {k: counts[k] for k in (*BENCH_LAUNCHES, "guard_select")}
+        check_per_step(path, launches[path], BENCH_LAUNCHES)
+        if launches[path]["guard_select"] != BENCH_LAUNCH_STEPS:
+            fail(f"{path}: {launches[path]} over {BENCH_LAUNCH_STEPS} steps")
+    phase("bench", f"flow launches over {BENCH_LAUNCH_STEPS} steps at 1080p B=1: {launches}")
+    del run_flow, run_step, i1, i2
+    torch.cuda.empty_cache()
+
+    # 3. the timing tools; an exception or a disagreement fails the phase.
+    out = {"bench": rec, "bench_s": bench_s}
+    with tempfile.TemporaryDirectory() as tmp:
+        rc, est = tool(bench_estimators.main, ["--device", dev, "--out", f"{tmp}/est.md"])
+    out["estimators"] = {k: {"best": r["best"], "median": r["median"], "err_deg": r["err_deg"]}
+                         for k, r in est["estimators"].items()}
+    phase("bench", f"bench_estimators rc {rc}, ms/frame best (median) at B=1, 150x84: "
+          + ", ".join(f"{k} {r['best']:.3f} ({r['median']:.3f})" for k, r in
+                      out["estimators"].items()) + f" | {smi}")
+    if rc != 0 or not all(r["err_deg"] < EST_AGREE_DEG for r in out["estimators"].values()):
+        fail("bench: bench_estimators failed or an estimator missed the rotation")
+    rc, prof = tool(profile_pipeline.main, [
+        "--device", dev, "--stages", BENCH_PROFILE_STAGES,
+        "--iters", str(BENCH_PROFILE_ITERS["profile_pipeline"])])
+    out["profile_pipeline"] = {k: (prof[k], prof["device_us"][k])
+                               for k in BENCH_PROFILE_STAGES.split(",")}
+    phase("bench", f"profile_pipeline rc {rc}, us/step (device-only us) at 1080p B=1: "
+          + ", ".join(f"{k} {v[0]:.1f} ({num(v[1], 1)})" for k, v in
+                      out["profile_pipeline"].items()) + f" | {smi}")
+    rc2, lib = tool(profile_libmv.main, [
+        "--device", dev, "--iters", str(BENCH_PROFILE_ITERS["profile_libmv"])])
+    out["profile_libmv"] = {k: (r["best"], r["device_ms"]) for k, r in lib["stages"].items()}
+    phase("bench", f"profile_libmv rc {rc2}, ms/iter (device-only ms): "
+          + ", ".join(f"{k} {v[0]:.3f} ({num(v[1], 3)})" for k, v in out["profile_libmv"].items())
+          + f" | {smi}")
+    rc3, lab = tool(perf_lab.main, ["base", "parts", "ablate", "--device", dev])
+    out["perf_lab"] = {"base_ms": lab["base"]["best"],
+                       "parts": {k: (r["best"], r["device_ms"]) for k, r in lab["parts"].items()},
+                       "ablate_fps": {k: r["fps_best"] for k, r in lab["ablate"].items()},
+                       "max_memory_allocated_bytes": lab.get("max_memory_allocated_bytes")}
+    phase("bench", f"perf_lab rc {rc3}: base B={lab['batch']} {lab['base']['best']:.3f} ms/call; parts "
+          + ", ".join(f"{k} {v[0]:.4f} ({num(v[1], 4)})" for k, v in
+                      out["perf_lab"]["parts"].items())
+          + "; ablate frames/s " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                             out["perf_lab"]["ablate_fps"].items())
+          + f"; peak {lab.get('max_memory_allocated_bytes', 0) / 2**30:.2f} GiB | {smi}")
+    rc4, agree = tool(check_backend_agreement.main, ["--device", dev], tail=2)
+    cell, worst = max(((k, c["diff"]) for k, c in agree["cells"].items()), key=lambda x: x[1])
+    out["agreement"] = {"rc": rc4, "max_diff_deg": worst, "worst_cell": cell,
+                        "disagree": agree["disagree"]}
+    phase("bench", f"check_backend_agreement rc {rc4}: max |card - cpu| {worst:.2e} deg/frame "
+          f"({cell}: card {agree['cells'][cell]['device']:.5f}, cpu "
+          f"{agree['cells'][cell]['cpu']:.5f}) over {len(agree['cells'])} cells, the same "
+          f"fields and draws (tolerance {check_backend_agreement.TOL_DEG})")
+    if rc != 0 or rc2 != 0 or rc3 != 0 or rc4 != 0:
+        fail("bench: a timing tool failed, or the card and the CPU disagree")
+    out["seconds"] = time.perf_counter() - t_phase
+    phase("bench", f"phase seconds {out['seconds']:.1f} | {smi}")
+    return out, launches
+
+
 def consumer_kernels(torch, pipe, state, grid, draws):
     """CUDA kernels and their summed device ms in one eager ``_consume``
     (the calls its CUDA graph replays), from ``torch.profiler``; (None,
@@ -2395,7 +2534,12 @@ def main() -> None:
     samples = run_samples(torch, device, counters, smi)
     torch.cuda.empty_cache()
 
-    # 13. timing
+    # 13. the port's benchmark and timing tools.
+    bench, bench_launches = run_bench(torch, device, counters, smi)
+    launches_by_path.update(bench_launches)
+    torch.cuda.empty_cache()
+
+    # 14. timing
     from ofps_torch.decoders.cv import CvFlowStep
     from ofps_torch.ops.flow_pyramid import dense_flow_warm
 
@@ -2539,7 +2683,7 @@ def main() -> None:
         "consumers_ms": consumers_ms,
         "consumer_kernels": consumer_kernel_counts,
         "cv_step_ms": cv_ms, "codec": codec, "apps": apps, "parallel": parallel,
-        "matrix": matrix, "samples": samples, "card": smi}))
+        "matrix": matrix, "samples": samples, "bench": bench, "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

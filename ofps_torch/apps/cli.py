@@ -13,6 +13,8 @@ Subcommands:
 * ``bench-e2e``      — host decode feeding the batched step; one JSON line.
 * ``watch``          — live browser view of a running config.
 * ``stats``          — summarize exported stats CSVs.
+* ``bench``          — the port's benchmark (:mod:`ofps_torch.apps.bench`,
+  the counterpart of the repository root's ``bench.py``); one JSON line.
 
 Usage: ``python -m ofps_torch.apps.cli [--device cuda|cpu] <subcommand> ...``.
 ``--device`` (default ``cuda``) is where every subcommand runs; a machine
@@ -271,6 +273,14 @@ def cmd_watch(args) -> int:
                      device=args.device)
 
 
+def cmd_bench(args) -> int:
+    """The port's benchmark on ``--device``, with the arguments after
+    ``bench`` (``bench.py``'s flags)."""
+    from ofps_torch.apps import bench
+
+    return bench.main(args.rest, device=args.device)
+
+
 def main(argv=None) -> int:
     import logging
 
@@ -358,7 +368,15 @@ def main(argv=None) -> int:
     st.add_argument("--out", default=None)
     st.set_defaults(fn=cmd_stats)
 
-    args = p.parse_args(argv)
+    be = sub.add_parser("bench", add_help=False,
+                        help="the port's benchmark (bench.py's flags; one JSON line)")
+    be.set_defaults(fn=cmd_bench)
+
+    # ``bench`` hands every argument after it to the benchmark's own parser.
+    args, rest = p.parse_known_args(argv)
+    if args.cmd != "bench" and rest:
+        p.error(f"unrecognized arguments: {' '.join(rest)}")
+    args.rest = rest
     args.device = resolve_device(args.device)
     return args.fn(args)
 

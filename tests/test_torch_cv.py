@@ -158,15 +158,26 @@ def _imported_modules(path: Path):
             yield node.module
 
 
+SCRIPT_MODULES = {p.stem for p in (ROOT / "scripts").glob("*.py")}
+
+
+def _jax_side(module: str) -> bool:
+    """jax, ofps_tpu, or the JAX package's tools: the repository root's
+    ``bench`` module and anything under ``scripts`` (as the package or as a
+    script's own module name)."""
+    top = module.split(".")[0]
+    return (top in ("jax", "jaxlib", "ofps_tpu", "scripts") or module == "bench"
+            or module in SCRIPT_MODULES)
+
+
 def test_port_imports_no_jax():
-    """No module of ofps_torch, nor chip_smoke.py, imports jax or ofps_tpu,
-    directly (read from the source) or through another module (checked in
-    a fresh interpreter after importing every module of the port)."""
+    """No module of ofps_torch, nor chip_smoke.py, imports jax, ofps_tpu or
+    the JAX package's tools (the root ``bench`` module, ``scripts``),
+    directly (read from the source, function bodies included, so a lazy
+    import counts) or through another module (checked in a fresh
+    interpreter after importing every module of the port)."""
     files = sorted((ROOT / "ofps_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    bad = [
-        (f.name, m) for f in files for m in _imported_modules(f)
-        if m.split(".")[0] in ("jax", "jaxlib", "ofps_tpu")
-    ]
+    bad = [(f.name, m) for f in files for m in _imported_modules(f) if _jax_side(m)]
     assert not bad, bad
     mods = [
         ".".join(f.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
@@ -175,7 +186,8 @@ def test_port_imports_no_jax():
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ofps_tpu')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ofps_tpu', "
+        f"'scripts') or m == 'bench' or m in {sorted(SCRIPT_MODULES)!r}]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
