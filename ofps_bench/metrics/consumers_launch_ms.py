@@ -1,0 +1,16 @@
+"""Consumers (``parallel/stream._CapturedCall``): host ms of the
+consumers' ``graph.replay()``, the ``cudaGraphLaunch`` (span
+``consumers.launch``), median over the window steps before the profiler
+started.  Nothing where the program records no such span."""
+
+from ofps_bench import serve
+
+
+def read(rec):
+    from ofps_torch.pipeline import runtime
+
+    perf = runtime.last_perf() if hasattr(runtime, "last_perf") else None
+    if perf is None:
+        return None
+    steps = serve.before_trace(rec.served.window, rec.served.traced)
+    return perf.median_ms("consumers.launch", steps)

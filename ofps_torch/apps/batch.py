@@ -9,11 +9,18 @@ uploaded with one copy, and fed as a (B, capacity) :class:`SparseFlow` to
 and detector replay as one CUDA graph on the card.  With ``shardings``
 each mesh row has its own buffers, uploaded to the row's device, and its
 own graph.
+
+Besides its four stages, each step is a ``step`` span of the run's
+:class:`~ofps_torch.pipeline.runtime.PerfStats`, opened before the decode
+wait, holding ``upload.wait`` and ``upload.pack`` (:class:`FlowUploader`)
+and the pipeline's own spans; ``decode.work`` beside it is the slowest
+feed's parse of the step's frame, on its feed thread.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import logging
 from typing import Any, Dict, List, Optional, Sequence
@@ -59,8 +66,9 @@ class BatchResult:
     eager_runs: int = 0
 
     def throughput_fps(self) -> float:
-        s = self.perf.summary().get("step", {})
-        total = s.get("total_ms", 0.0) / 1e3
+        """Stream-frames a second over the loop's time: the totals of the
+        four stages (decode wait, upload, step enqueue, fetch) summed."""
+        total = sum(s["total_ms"] for s in self.perf.summary().values()) / 1e3
         return self.frames * self.streams / total if total else 0.0
 
     def motion_ranges(self, stream: int):
@@ -87,10 +95,13 @@ class FlowUploader:
     (``core.motion.pack_entries``: the rows of ``SparseFlow.from_arrays``,
     padded, or truncated to the capacity) and uploads it with one
     non-blocking copy.  Two buffers take turns; a buffer is refilled only
-    after its last copy has finished."""
+    after its last copy has finished.  Given a recorder, :meth:`pack` is two
+    spans of it: ``upload.wait`` (for the buffer's last copy) and
+    ``upload.pack`` (zero-fill and packing)."""
 
-    def __init__(self, batch: int, capacity: int, device):
+    def __init__(self, batch: int, capacity: int, device, perf: Optional[PerfStats] = None):
         self.device = torch.device(device)
+        self.perf = perf
         pin = self.device.type == "cuda"
         self._bufs = [torch.zeros((batch, capacity, 5), pin_memory=pin) for _ in range(2)]
         self._done = [None, None]
@@ -100,12 +111,15 @@ class FlowUploader:
         """Fill the next buffer from ``frames`` (None: an empty stream);
         returns the valid vectors per stream."""
         i = self._turn
-        if self._done[i] is not None:
-            self._done[i].synchronize()
-        host = self._bufs[i].numpy()
-        host.fill(0.0)
-        return np.array([0 if f is None else pack_entries(f.pos, f.motion, host[b])
-                         for b, f in enumerate(frames)], np.int64)
+        span = self.perf.span if self.perf is not None else _no_span
+        with span("upload.wait"):
+            if self._done[i] is not None:
+                self._done[i].synchronize()
+        with span("upload.pack"):
+            host = self._bufs[i].numpy()
+            host.fill(0.0)
+            return np.array([0 if f is None else pack_entries(f.pos, f.motion, host[b])
+                             for b, f in enumerate(frames)], np.int64)
 
     def upload(self) -> SparseFlow:
         """The buffer :meth:`pack` filled, on the device."""
@@ -118,6 +132,10 @@ class FlowUploader:
         else:
             dev = self._bufs[i].clone()
         return SparseFlow(dev[..., 0:2], dev[..., 2:4], dev[..., 4])
+
+
+def _no_span(name: str):
+    return contextlib.nullcontext()
 
 
 class _Fetch:
@@ -187,8 +205,9 @@ def run_batch(
     ]
     det = create_detector(detector) if detector else None
     camera = StandardCamera.create(camera_aspect, camera_fov_y)
+    perf = PerfStats()
     pipe = StreamPipeline(camera=camera, estimators=ests, detector=det, device=device,
-                          shardings=shardings)
+                          shardings=shardings, perf=perf)
     dev = pipe.device
     b = len(inputs)
     state = pipe.init_state(b, 1, 1)
@@ -197,11 +216,10 @@ def run_batch(
     row_devices = ([mesh.row_device(r) for r in range(mesh.shape["stream"])]
                    if mesh is not None else [dev])
     nb = b // len(row_devices)
-    uploaders = [FlowUploader(nb, capacity, d) for d in row_devices]
+    uploaders = [FlowUploader(nb, capacity, d, perf) for d in row_devices]
 
     feeds = [DecoderFeed(create_decoder(path, decoder_plugin)) for path in inputs]
     iters = [iter(f) for f in feeds]
-    perf = PerfStats()
     detections: List[np.ndarray] = []
     want_gt = ground_truths is not None and any(ground_truths)
     dr_hist: List[List[np.ndarray]] = [[] for _ in ests]
@@ -222,55 +240,61 @@ def run_batch(
 
     try:
         while max_frames is None or frames < max_frames:
-            with perf.time("decode"):
-                batch = []
-                for si, it in enumerate(iters):
-                    try:
-                        batch.append(next(it, None))
-                    except Exception:
-                        # Stream-level fault isolation under drop_ended: a
-                        # failing decoder ends its stream, the batch lives
-                        # on.  Strict lockstep re-raises.
-                        if not drop_ended:
-                            raise
-                        _LOG.exception(
-                            "run_batch: stream %s failed at frame %d; "
-                            "dropping it (drop_ended)", inputs[si], frames
-                        )
-                        batch.append(None)
-                        iters[si] = iter(())
-                live = [f is not None for f in batch]
-                if not all(live) and not (drop_ended and any(live)):
-                    if any(live):
-                        _LOG.info(
-                            "run_batch: stream(s) %s ended at frame %d; longer "
-                            "streams are truncated (lockstep batch; pass "
-                            "drop_ended=True to continue)",
-                            [inputs[i] for i, f in enumerate(batch) if f is None],
-                            frames,
-                        )
-                    break
-                active_hist.append(live)
-            # The pack waits until its buffer's previous copy is done, so it
-            # is the upload's cost (and the card's back-pressure), not the
-            # decode's: "decode" is only the wait on the decoder feeds.
-            with perf.time("upload"):
-                vectors.append(np.concatenate([
-                    up.pack(batch[r * nb : (r + 1) * nb]) for r, up in enumerate(uploaders)]))
-                flows = [up.upload() for up in uploaders]
-                flow = flows[0] if mesh is None else RowShards(flows)
-            with perf.time("step"):
-                state, out = pipe.step_from_flow(state, flow, generator)
-                wanted = []
-                if want_gt:
-                    for e in range(len(ests)):
-                        wanted += [out.delta_rot[e], out.rot[e]]
-                if det is not None:
-                    wanted.append(out.detection.detected)
-                pending.append(_Fetch(wanted, dev))
-            if len(pending) > fetch_lag:
-                with perf.time("fetch"):
-                    _drain(pending.popleft())
+            with perf.span("step", step=frames):
+                with perf.time("decode"):
+                    batch = []
+                    for si, it in enumerate(iters):
+                        try:
+                            batch.append(next(it, None))
+                        except Exception:
+                            # Stream-level fault isolation under drop_ended: a
+                            # failing decoder ends its stream, the batch lives
+                            # on.  Strict lockstep re-raises.
+                            if not drop_ended:
+                                raise
+                            _LOG.exception(
+                                "run_batch: stream %s failed at frame %d; "
+                                "dropping it (drop_ended)", inputs[si], frames
+                            )
+                            batch.append(None)
+                            iters[si] = iter(())
+                    live = [f is not None for f in batch]
+                    if not all(live) and not (drop_ended and any(live)):
+                        if any(live):
+                            _LOG.info(
+                                "run_batch: stream(s) %s ended at frame %d; longer "
+                                "streams are truncated (lockstep batch; pass "
+                                "drop_ended=True to continue)",
+                                [inputs[i] for i, f in enumerate(batch) if f is None],
+                                frames,
+                            )
+                        break
+                    active_hist.append(live)
+                # The slowest feed's parse of this step's frame, on its
+                # feed thread (it overlapped the steps before).
+                slow = max((f for f in batch if f is not None), key=lambda f: f.decode_time)
+                perf.record("decode.work", slow.decode_start,
+                            slow.decode_start + slow.decode_time)
+                # The pack waits until its buffer's previous copy is done, so it
+                # is the upload's cost (and the card's back-pressure), not the
+                # decode's: "decode" is only the wait on the decoder feeds.
+                with perf.time("upload"):
+                    vectors.append(np.concatenate([
+                        up.pack(batch[r * nb : (r + 1) * nb]) for r, up in enumerate(uploaders)]))
+                    flows = [up.upload() for up in uploaders]
+                    flow = flows[0] if mesh is None else RowShards(flows)
+                with perf.time("step"):
+                    state, out = pipe.step_from_flow(state, flow, generator)
+                    wanted = []
+                    if want_gt:
+                        for e in range(len(ests)):
+                            wanted += [out.delta_rot[e], out.rot[e]]
+                    if det is not None:
+                        wanted.append(out.detection.detected)
+                    pending.append(_Fetch(wanted, dev))
+                if len(pending) > fetch_lag:
+                    with perf.time("fetch"):
+                        _drain(pending.popleft())
             frames += 1
         while pending:
             with perf.time("fetch"):

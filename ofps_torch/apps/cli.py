@@ -109,6 +109,7 @@ def cmd_run_config(args) -> int:
             print(f"  {stage}: avg {s['avg_ms']:.2f} ms over {s['frames']}")
         print(f"  consumers: {res.graphs} CUDA graph(s), {res.graph_replays} replays, "
               f"{res.eager_runs} eager runs")
+        _print_spans(res.perf)
     else:
         print(f"unknown app {app!r} (want 'detection' or 'tracking')", file=sys.stderr)
         return 1
@@ -142,10 +143,11 @@ def cmd_run_batch(args) -> int:
     )
     print(
         f"{res.streams} streams x {res.frames} frames; "
-        f"device throughput {res.throughput_fps():.1f} stream-frames/s"
+        f"{res.throughput_fps():.1f} stream-frames/s over the loop's stages"
     )
     for stage, s in res.perf.summary().items():
         print(f"  {stage}: avg {s['avg_ms']:.2f} ms/batch-step")
+    _print_spans(res.perf)
     if res.detections is not None:
         per_stream = res.detections.sum(axis=0)
         print(f"  detections per stream: {per_stream.tolist()}")
@@ -157,6 +159,15 @@ def cmd_run_batch(args) -> int:
                 f"(r {avg[1]*deg:.4f}, p {avg[2]*deg:.4f}, y {avg[3]*deg:.4f})"
             )
     return 0
+
+
+def _print_spans(perf) -> None:
+    """One line per span of ``perf``: its median host ms a step and, where
+    it has one, its median device ms."""
+    for name in perf.span_names():
+        line = f"  span {name}: median {perf.median_ms(name):.3f} ms"
+        device = perf.median_ms(name, device=True)
+        print(line if device is None else f"{line}, device {device:.3f} ms")
 
 
 def cmd_stats(args) -> int:

@@ -106,7 +106,7 @@ class EstimatorTrack:
 class TrackingResult:
     frames: int
     tracks: List[EstimatorTrack]
-    perf: PerfStats  # stages "decode", "estimate" (host clock)
+    perf: PerfStats  # stages "decode", "estimate" (host clock); a "step" span a frame
     # How the estimators ran: CUDA graphs captured, replays, eager calls.
     graphs: int = 0
     graph_replays: int = 0
@@ -151,22 +151,22 @@ def run_tracking(
         if e.get("enabled", True)
     ]
     camera = StandardCamera.create(camera_aspect, camera_fov_y)
-    pipe = StreamPipeline(camera=camera, estimators=insts, device=dev)
+    perf = PerfStats()
+    pipe = StreamPipeline(camera=camera, estimators=insts, device=dev, perf=perf)
     live = LivePipeline(pipe, 1, 1, 1, from_flow=True)  # no frames on the MV input
     generator = torch.Generator(device=dev).manual_seed(seed)
-    uploader = FlowUploader(1, capacity, dev)
+    uploader = FlowUploader(1, capacity, dev, perf)
 
     decoder = create_decoder(input_path, decoder_plugin, device=dev, **(decoder_props or {}))
     feed = DecoderFeed(decoder, want_frames=want_frames)
     timer = RealtimeTimer(decoder.get_framerate() if realtime else None)
-    perf = PerfStats()
     tracks = [EstimatorTrack(name=i.name) for i in insts]
     frames = 0
 
     try:
         for frame in feed:
             perf.add("decode", getattr(frame, "decode_time", 0.0))
-            with perf.time("estimate"):
+            with perf.span("step", step=frames), perf.time("estimate"):
                 uploader.pack([frame])
                 flow = uploader.upload()
                 if props_hook is not None:

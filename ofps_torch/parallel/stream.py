@@ -22,10 +22,19 @@ the per-frame properties (0-d device tensors) passing in as static inputs.
 the step on its own devices (its own consumers' graph), and with a space
 axis the row's dense flow runs as column bands with a halo exchange
 (:mod:`ofps_torch.parallel.spatial`).
+
+Each step writes spans into the pipeline's recorder (``perf``, a
+:class:`~ofps_torch.pipeline.runtime.PerfStats`): ``step`` (or
+``pipeline.step`` under a caller's open span), ``flow`` (frames only,
+with its CUDA-event time), ``draws``, ``consumers`` and, on CUDA,
+``consumers.copy_in``, ``consumers.launch`` (the replay, with its
+CUDA-event time), ``consumers.clone`` and, once per graph,
+``consumers.capture`` with the captured graph's node count.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Any, List, NamedTuple, Optional, Sequence, Tuple, Union
 
@@ -61,6 +70,7 @@ from ofps_torch.parallel.sharding import (
     shard_put,
 )
 from ofps_torch.parallel.spatial import dense_flow_warm_spatial
+from ofps_torch.pipeline.runtime import PerfStats, set_last_perf
 
 
 class StreamState(NamedTuple):
@@ -86,6 +96,19 @@ class StreamOutputs(NamedTuple):
     detection: Optional[DetectionResult]  # batched over B, or None
 
 
+def _step_span(method):
+    """``method`` inside a span of the pipeline's recorder: a root
+    ``step``, or ``pipeline.step`` inside a span its caller holds open
+    (``run_batch``'s step, or a sharded pipeline's for its rows)."""
+
+    @functools.wraps(method)
+    def spanned(self, *args, **kwargs):
+        with self.perf.span("pipeline.step" if self.perf.depth else "step", row=self._row):
+            return method(self, *args, **kwargs)
+
+    return spanned
+
+
 class StreamPipeline:
     """A configured batched pipeline over B streams of (H, W) video on one
     ``device`` (default the CUDA card; raises where there is none).
@@ -104,6 +127,12 @@ class StreamPipeline:
     gives the unsharded step's results.  With a space axis the flow runs
     as column bands (no grid plan: the full-resolution flow is densified)
     and the carried cache holds the raw frame only.
+
+    ``perf``: the recorder the steps' spans go to (a new one by default);
+    the rows of a sharded pipeline write into their parent's, under their
+    row index.  A top-level pipeline's recorder is what
+    :func:`~ofps_torch.pipeline.runtime.last_perf` returns until the next
+    is built.
     """
 
     def __init__(
@@ -117,7 +146,9 @@ class StreamPipeline:
         device="cuda",
         plain: bool = False,
         shardings: Optional[StreamSharding] = None,
+        perf: Optional[PerfStats] = None,
         _band_mesh: Optional[StreamMesh] = None,
+        _row: Optional[int] = None,
     ):
         self.camera = camera
         self.estimators = tuple(estimators)
@@ -132,6 +163,10 @@ class StreamPipeline:
         # Consumer runs by kind: CUDA-graph replays and eager calls.
         self.graph_replays = 0
         self.eager_runs = 0
+        self.perf = perf if perf is not None else PerfStats()
+        self._row = _row
+        if _row is None:
+            set_last_perf(self.perf)
         # A row of a sharded pipeline: the (1, space) mesh its flow's
         # column bands run on, when the space axis is larger than 1.
         self._band_mesh = _band_mesh
@@ -144,14 +179,16 @@ class StreamPipeline:
             for d in row:
                 resolve_device(d)
         self.device = mesh.first_device
-        self._rows = tuple(self._row_pipeline(mesh.row(r)) for r in range(mesh.shape["stream"]))
+        self._rows = tuple(self._row_pipeline(mesh.row(r), r)
+                           for r in range(mesh.shape["stream"]))
 
-    def _row_pipeline(self, row_mesh: StreamMesh) -> "StreamPipeline":
-        """The pipeline of one mesh row, on the row's first device."""
+    def _row_pipeline(self, row_mesh: StreamMesh, r: int) -> "StreamPipeline":
+        """The pipeline of mesh row ``r``, on the row's first device."""
         return StreamPipeline(
             self.camera, self.estimators, self.detector, self.flow_params, self.grid_wh,
             self.emit_dense_flow, device=row_mesh.first_device, plain=self.plain,
-            _band_mesh=row_mesh if row_mesh.shape["space"] > 1 else None,
+            perf=self.perf, _band_mesh=row_mesh if row_mesh.shape["space"] > 1 else None,
+            _row=r,
         )
 
     def _grid_plan(self, h: int, w: int) -> Optional[GridPlan]:
@@ -285,12 +322,15 @@ class StreamPipeline:
                 f, rot, pos, d, est, vals = _rebuild(tree, iter(xs))
                 return self._consume(est, rot, pos, f, d, _props_from(names, vals))
 
-            self._graphs[gkey] = _CapturedCall(fn, inputs)
+            with self.perf.span("consumers.capture") as sp:
+                self._graphs[gkey] = _CapturedCall(fn, inputs)
+                sp.nodes = self._graphs[gkey].nodes
         self.graph_replays += 1
-        return self._graphs[gkey](inputs)
+        return self._graphs[gkey](inputs, self.perf)
 
     # -- steps ---------------------------------------------------------------
 
+    @_step_span
     def step_from_frames(
         self, state: StreamState, gray: torch.Tensor,
         generator: Optional[torch.Generator] = None, props=None, draws=None,
@@ -314,6 +354,8 @@ class StreamPipeline:
             raise ValueError(f"frames on {gray.device}, pipeline on {self.device}")
         h, w = gray.shape[-2], gray.shape[-1]
         plan = self._grid_plan(h, w)
+        perf = self.perf
+        flow_span = perf.open("flow", device=self.device)
         if self._band_mesh is not None:
             (u, v), warm = dense_flow_warm_spatial(
                 state.prev_cache.pyr[0], gray, self.flow_params, state.warm_uv,
@@ -341,6 +383,7 @@ class StreamPipeline:
                 u, v, gw, gh, norm_wh=(w, h),
                 border_px=border_margin_px(self.flow_params, h, w),
             )
+        draws_span = perf.open("draws", t=perf.close(flow_span))
         if draws is None:
             n = grid.shape[-3] * grid.shape[-2]
             draws = tuple(
@@ -348,7 +391,8 @@ class StreamPipeline:
                 else est.draw(generator, grid.shape[:-3], n, grid.device)
                 for est in self.estimators
             )
-        rot, pos, dr, dt, est, detection = self._run_consumers(state, grid, draws, props)
+        with perf.span("consumers", t=perf.close(draws_span)):
+            rot, pos, dr, dt, est, detection = self._run_consumers(state, grid, draws, props)
         new_state = StreamState(
             prev_cache=new_cache,
             warm_uv=warm,
@@ -367,6 +411,7 @@ class StreamPipeline:
             delta_tr=dt, detection=detection,
         )
 
+    @_step_span
     def step_from_flow(
         self, state: StreamState, sparse: SparseFlow,
         generator: Optional[torch.Generator] = None, props=None, draws=None,
@@ -389,13 +434,16 @@ class StreamPipeline:
         if sparse.mask.device.type != self.device.type:
             raise ValueError(f"flow on {sparse.mask.device}, pipeline on {self.device}")
         lead = sparse.mask.shape[:-1]
+        perf = self.perf
+        draws_span = perf.open("draws")
         if draws is None:
             draws = tuple(
                 None if est.draw is None
                 else est.draw(generator, lead, sparse.capacity, self.device, dense=False)
                 for est in self.estimators
             )
-        rot, pos, dr, dt, est, detection = self._run_consumers(state, sparse, draws, props)
+        with perf.span("consumers", t=perf.close(draws_span)):
+            rot, pos, dr, dt, est, detection = self._run_consumers(state, sparse, draws, props)
         empty = torch.zeros(lead + (0, 0, 2), device=self.device)
         return state._replace(rot=rot, pos=pos, est=est), StreamOutputs(
             flow=empty, grid=empty, rot=rot, pos=pos, delta_rot=dr, delta_tr=dt,
@@ -530,10 +578,30 @@ def _clone(x):
     return _rebuild(x, (t.clone() for t in _leaves(x)))
 
 
+@functools.lru_cache(maxsize=1)
+def _cu_graph_get_nodes():
+    """CUDA's ``cuGraphGetNodes`` from ``libcuda.so.1``."""
+    fn = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _graph_nodes(graph: "torch.cuda.CUDAGraph") -> int:
+    """The node count of ``graph``'s kept ``cudaGraph_t``."""
+    n = ctypes.c_size_t(0)
+    rc = _cu_graph_get_nodes()(graph.raw_cuda_graph(), None, ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed with CUresult {rc}")
+    return n.value
+
+
 class _CapturedCall:
     """``fn(*inputs)`` captured as a CUDA graph over static input buffers:
     a call copies its inputs in, replays, and returns clones of the outputs
-    (the next replay overwrites the static ones)."""
+    (the next replay overwrites the static ones), each of the three a span
+    of the recorder it is given.  ``nodes``: the captured graph's node
+    count, read before it is instantiated."""
 
     def __init__(self, fn, inputs):
         # Capture and replay with the inputs' card current, so that the
@@ -549,13 +617,20 @@ class _CapturedCall:
             with torch.cuda.stream(side):
                 fn(*self.inputs)  # warm-up: lazily built constants and caches
             torch.cuda.current_stream(self.device).wait_stream(side)
-            self.graph = torch.cuda.CUDAGraph()
+            self.graph = torch.cuda.CUDAGraph(keep_graph=True)
             with torch.cuda.graph(self.graph, stream=side):
                 self.outputs = fn(*self.inputs)
+            self.nodes = _graph_nodes(self.graph)
+            self.graph.instantiate()
 
-    def __call__(self, inputs):
+    def __call__(self, inputs, perf: PerfStats):
         with torch.cuda.device(self.device):
+            sp = perf.open("consumers.copy_in")
             for static, x in zip(self.inputs, inputs):
                 static.copy_(x)
+            sp = perf.open("consumers.launch", t=perf.close(sp), device=self.device)
             self.graph.replay()
-            return _clone(self.outputs)
+            sp = perf.open("consumers.clone", t=perf.close(sp))
+            out = _clone(self.outputs)
+            perf.close(sp)
+            return out
