@@ -662,6 +662,89 @@ def kernel_cases(torch, device, batch: int):
     return cases
 
 
+# Almeida's RANSAC has no TPU kernel (the JAX package leaves it to XLA);
+# its three hand kernels stand in for the plain PyTorch RANSAC.  Against
+# the plain version on the card: the same winner and count in every
+# stream, the rotation within ALMEIDA_TOL rad (only the refit's sums take
+# another order).
+REPLACES["almeida_ransac"] = (
+    "csrc/almeida_ransac.cu", "none: ofps_tpu/estimators/almeida.py:171 solve_ypr_ransac (XLA)")
+ALMEIDA_TOL = 1e-6
+ALMEIDA_LAUNCHES = 3  # a call: fit, score, refit
+ALMEIDA_H, ALMEIDA_S = 200, 1000  # hypotheses, eval points (the defaults)
+
+
+def almeida_cost(batch: int, h: int, s: int):
+    """(bytes, ops) of one almeida_ransac call: per stream the hypotheses'
+    3 points (an int64 index, pos, motion, mask: 28 bytes each) and the
+    eval subset (index, weight, pos, motion: 28 bytes a point) read once,
+    the rotation, winner and count written; float32 operations 12,183 a
+    fit, 70 a hypothesis's test of a point and 2,226 a refit point (30
+    iterations each), a transcendental counted as one."""
+    return batch * (28 * 3 * h + 28 * s + 24), batch * (12183 * h + 70 * h * s + 2226 * s)
+
+
+def almeida_cases(torch, device):
+    """:class:`Case` s of ``kernels/almeida.ransac`` at the main path's
+    shapes, B=8 and B=32: the frames cells' dense 84x150 grid and the
+    codec cells' masked rows (CODEC_CAPACITY points: the lattice's with a
+    third invalid, then invalid rows), on :func:`rotation_grid`'s fixture,
+    with the bound a 0-d tensor as the consumers' graph takes it."""
+    from ofps_torch.core.camera import StandardCamera
+    from ofps_torch.core.motion import SparseFlow, field_to_sparse
+    from ofps_torch.estimators import almeida as est
+    from ofps_torch.kernels import almeida as kalm
+    from ofps_torch.ops import robust
+
+    cam = StandardCamera.create(W / H, 60.0)
+    cases = []
+    for b in (8, 32):
+        rgrid, _, mask = rotation_grid(torch, b, SEED + 20 + b)
+        lattice = field_to_sparse(rgrid)
+        pad = CODEC_CAPACITY - mask.shape[-1]
+        for masked in (False, True):
+            flow = lattice if not masked else SparseFlow(*(
+                torch.cat([x, x.new_zeros(x.shape[:1] + (pad,) + x.shape[2:])], dim=1)
+                for x in (lattice.pos, lattice.motion, mask)))
+            flow = SparseFlow(*(x.to(device) for x in flow))
+            n = flow.mask.shape[-1]
+            gen = torch.Generator(device=device).manual_seed(SEED + 30 + b)
+            fit_idx = robust.as_indices(
+                robust.draw(gen, (b,), n, ALMEIDA_H, 3, device, dense=not masked),
+                flow.mask).to(torch.int64)
+            if masked:
+                eidx, w_e = robust.eval_subset(flow.mask, ALMEIDA_S)
+            else:
+                eidx, w_e = (x.expand((b,) + x.shape)
+                             for x in robust.dense_eval_subset(n, ALMEIDA_S, str(device)))
+            bound = est._inlier_bound(torch.tensor(0.05, device=device), flow.pos)
+            args = (cam, flow, fit_idx, eidx, w_e, bound)
+            case = Case(lambda a=args: kalm.ransac(*a), lambda a=args: kalm.ransac_plain(*a),
+                        ("almeida", None), (b, n), almeida_cost(b, ALMEIDA_H, ALMEIDA_S))
+            case.note = f"B={b} {'masked' if masked else 'dense'}"
+            cases.append(case)
+    return cases
+
+
+def replay_kernels(torch, pipe, state, field, draws, props=None, part="almeida_"):
+    """The kernels whose names hold ``part`` in one replay of ``pipe``'s
+    captured consumers' graph, from ``torch.profiler`` (CUPTI reports a
+    graph's kernels, by their demangled names: ``(anonymous
+    namespace)::almeida_fit_kernel(...)``); None where the profiler sees no
+    CUDA events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    graphs = len(pipe._graphs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pipe._run_consumers(state, field, draws, props)
+        torch.cuda.synchronize()
+    if len(pipe._graphs) != graphs:
+        fail("replay_kernels: the call captured a new graph")
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(part in e.name for e in kernels) if kernels else None
+
+
 def rounded(xs, nd: int = 4):
     return [None if x is None else round(x, nd) for x in xs]
 
@@ -680,7 +763,15 @@ def time_cases(torch, items):
 
 
 def compare(torch, got, ref, kind):
-    """(max_abs_err, mismatch_share, ok) of kernel output vs plain."""
+    """(max_abs_err, mismatch_share, ok) of kernel output vs plain; for
+    almeida (rotation gap in rad, share of streams with another winner or
+    count, ok)."""
+    if kind[0] == "almeida":
+        from ofps_torch.core import quat
+
+        gap = quat.angle_to(got[0].double(), ref[0].double()).max().item()
+        off = ((got[1].long() != ref[1]) | (got[2].long() != ref[2])).float().mean().item()
+        return gap, off, off == 0 and gap <= ALMEIDA_TOL and bool(torch.isfinite(got[0]).all())
     if kind[0] == "grid":
         plan = kind[1]
         errs = []
@@ -720,9 +811,12 @@ def make_pipeline(device, plain: bool, estimators=ESTIMATORS, fov_y: float = 60.
     )
 
 
-def launch_counters(kfr, kfs, kwarp):
+def launch_counters(kfr, kfs, kwarp, kalm):
     """Per kernel: the (wrapper, attribute) launch counts that it sums.
-    The 3x3 median is counted where a refine launch takes it."""
+    The 3x3 median is counted where a refine launch takes it; almeida's
+    three kernels are launched from the host where a consumers' graph is
+    captured (twice a capture: its warm-up and the captured call) or run
+    eagerly, and replay inside the graph."""
     return {
         "flow_refine": [(kfr.flow_refine, "launches")],
         "flow_refine_2d": [(kfs.flow_refine_small, "launches")],
@@ -731,6 +825,7 @@ def launch_counters(kfr, kfs, kwarp):
         "median3x3_uv": [(kfr.flow_refine, "median_in_launches"),
                          (kfs.flow_refine_small, "median_in_launches")],
         "warp_bilinear": [(kwarp.warp_bilinear, "launches")],
+        "almeida_ransac": [(kalm.ransac, "launches")],
     }
 
 
@@ -1052,6 +1147,8 @@ def run_codec(torch, device, counters, smi):
         res, launches = count_launches(torch, counters, lambda: run_batch(
             mvecs, estimators=[{"name": n} for n in ALL4], ground_truths=gts,
             capacity=cap, drop_ended=True, fetch_lag=1, device=device))
+        captures = sum(sp.name == "consumers.capture"
+                       for spans in res.perf.spans.values() for sp in spans)
         gt_deg = {name: [round(math.degrees(res.gt_avg_err[(s, name)][0]), 5) for s in range(b)]
                   for name in ALL4}
         rots = np.stack([np.stack(h) for h in res.rot_hist])  # (E, T, B, 4)
@@ -1065,8 +1162,9 @@ def run_codec(torch, device, counters, smi):
               f"vectors (mean {counts[:, 1:].mean():.1f} per frame), built in {build_s:.2f} s; "
               f"run_batch 1080p lattice B={b} capacity {cap} ({'+'.join(ALL4)} + "
               f"block_motion, drop_ended, fetch_lag 1): {res.frames} steps, graph replays "
-              f"{res.graph_replays}, eager runs {res.eager_runs}, hand-kernel launches "
-              f"{launches} (this path reaches no pl.pallas_call); vectors per step as in the "
+              f"{res.graph_replays}, eager runs {res.eager_runs}, graph captures {captures}, "
+              f"hand-kernel launches from the host {launches} (this path reaches no "
+              f"pl.pallas_call); vectors per step as in the "
               f"files={counts_ok}; poses finite={finite}; the short stream frozen after its "
               f"end={frozen}; host split {json.dumps(res.perf.summary())}")
         phase("codec", f"mean rotation error per frame vs ground truth, deg, per stream: "
@@ -1075,6 +1173,8 @@ def run_codec(torch, device, counters, smi):
             fail("codec: wrong steps or vector counts, a non-finite pose, or a frozen stream moved")
         if res.graph_replays != res.frames or res.eager_runs != 0:
             fail("codec: the consumers did not replay as one CUDA graph per step")
+        if captures < 1 or launches["almeida_ransac"] != 2 * ALMEIDA_LAUNCHES * captures:
+            fail("codec: almeida's kernels were launched outside the graphs' captures")
         if max(max(v) for v in gt_deg.values()) > CODEC_GT_DEG:
             fail("codec: an estimator misses the ground truth")
 
@@ -1140,6 +1240,10 @@ def run_codec(torch, device, counters, smi):
                                for x, y in zip(_leaves(graphed), _leaves(eager))))
         g_state = g_state._replace(rot=graphed[0], pos=graphed[1], est=graphed[4])
         e_state = e_state._replace(rot=eager[0], pos=eager[1], est=eager[4])
+    # Almeida's kernels in one replay of the live graph (props as device
+    # scalars): ALMEIDA_LAUNCHES.
+    launches["almeida_ransac"] = replay_kernels(torch, pipe4, g_state, flows[5], draws,
+                                                live.props)
     before = live.step(flows[5], gen)[1].detection.detected.tolist()
     graphs = len(pipe4._graphs)
     applied = live.set_property("detector", "target_motion", 0.1)
@@ -1148,7 +1252,10 @@ def run_codec(torch, device, counters, smi):
     phase("codec", f"live all four B={b}: libmv has={has}; graph vs eager over two steps "
           f"(carry through the graph) max |diff| {g_err:.3e}; target_motion 0.003 -> 0.1: "
           f"applied={applied}, detected {before} -> {after}, graphs {graphs} -> "
-          f"{len(pipe4._graphs)}, eager runs {pipe4.eager_runs}")
+          f"{len(pipe4._graphs)}, eager runs {pipe4.eager_runs}; almeida kernels in a "
+          f"replay {launches['almeida_ransac']} (torch.profiler)")
+    if launches["almeida_ransac"] not in (None, ALMEIDA_LAUNCHES):
+        fail("codec: almeida's kernels did not run once a replay")
     if g_err > GRAPH_TOL or min(has) < 1.0:
         fail("codec: the consumers' graph and eager calls disagree, or libmv's chain not set")
     if not (applied and any(before) and not any(after) and graphs == len(pipe4._graphs) == 1
@@ -2317,6 +2424,7 @@ def main() -> None:
           f"cuda {torch.version.cuda} | count {torch.cuda.device_count()}")
 
     # 2. build
+    from ofps_torch.kernels import almeida as kalm
     from ofps_torch.kernels import build
     from ofps_torch.kernels import flow_refine as kfr
     from ofps_torch.kernels import flow_refine_small as kfs
@@ -2326,7 +2434,7 @@ def main() -> None:
     build.library()
     phase("build", f"nvcc sm_90a build+load {time.perf_counter() - t0:.2f} s "
           f"({build.source_digest()})")
-    counters = launch_counters(kfr, kfs, kwarp)
+    counters = launch_counters(kfr, kfs, kwarp, kalm)
     # The median has no launch of its own any more: no wrapper or entry
     # point that a path could call for it.
     if hasattr(kfs, "median3x3_uv") or hasattr(build.library(), "ofps_median3x3"):
@@ -2335,6 +2443,7 @@ def main() -> None:
     # 3. kernels vs plain
     batch = 4
     cases = kernel_cases(torch, device, batch)
+    cases["almeida_ransac"] = almeida_cases(torch, device)
     results = {}
     for name, items in cases.items():
         worst, share, ok, errs = 0.0, 0.0, True, []
@@ -2376,7 +2485,20 @@ def main() -> None:
     # levels 4..1.
     check_per_step("serving_slice", launches, {
         "flow_refine": 4, "flow_refine_small": 3, "median3x3_uv": 4})
+    # Almeida's kernels: launched from the host twice a capture, and
+    # ALMEIDA_LAUNCHES of them in every replay of the consumers' graph.
     last = outs[-1]
+    n_last = last.grid.shape[1] * last.grid.shape[2]
+    launches["almeida_ransac"] = replay_kernels(
+        torch, pipe, state, last.grid, tuple(e.draw(gen, (batch,), n_last, device)
+                                             for e in pipe.estimators))
+    phase("slice", f"almeida_ransac: {counts['almeida_ransac']} host launches for "
+          f"{len(pipe._graphs)} capture(s) and {pipe.graph_replays} replays; "
+          f"{launches['almeida_ransac']} almeida kernels in a replay (torch.profiler)")
+    if (counts["almeida_ransac"] != 2 * ALMEIDA_LAUNCHES * len(pipe._graphs)
+            or pipe.graph_replays != frames.shape[0] + 1
+            or launches["almeida_ransac"] not in (None, ALMEIDA_LAUNCHES)):
+        fail("serving_slice: almeida's kernels did not run once a replay, in the graph")
     u_px = last.grid[:, 8:-8, 8:-8, 0] * W
     med = u_px.median().item()
     rot_ok = all(bool(torch.isfinite(r).all()) for o in outs for r in o.rot + o.delta_rot)

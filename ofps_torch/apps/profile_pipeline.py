@@ -49,14 +49,10 @@ from ofps_torch.core.motion import Densifier, field_to_sparse, grid_downsample_u
 from ofps_torch.detectors.base import create_detector
 from ofps_torch.detectors.block_motion import block_dim
 from ofps_torch.device import resolve_device
-from ofps_torch.estimators.almeida import (
-    AlmeidaParams,
-    _take,
-    solve_ypr_ransac,
-    solve_ypr_weighted,
-)
+from ofps_torch.estimators.almeida import AlmeidaParams, solve_ypr_ransac, solve_ypr_weighted
 from ofps_torch.estimators.base import create_estimator
 from ofps_torch.estimators.homography import HomographyParams, _minimal, hypothesis_count
+from ofps_torch.kernels.almeida import _take
 from ofps_torch.ops.components import largest_component
 from ofps_torch.ops.flow_pyramid import FlowParams, dense_flow_warm
 from ofps_torch.ops.homography import dlt_homography, homography_transfer_error

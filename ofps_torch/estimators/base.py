@@ -6,7 +6,9 @@ carried state; stateless estimators use ``()``) and
 ``estimate(state, flow, camera, generator=None, props=None, dense=False,
 fit_idx=None, move_magnitude=None) -> (quat (B, 4), translation (B, 3),
 state)`` over a batch of
-B sparse flows.  An estimator that samples may also provide ``draw``: its
+B sparse flows; the built-in estimators also take ``plain=True``, which
+runs the plain versions of their hand kernels (``StreamPipeline(plain=True)``
+passes it).  An estimator that samples may also provide ``draw``: its
 random inputs drawn ahead of ``estimate`` (passed back as ``fit_idx``), so
 that ``estimate`` itself is a fixed sequence of device operations, dense
 or masked.

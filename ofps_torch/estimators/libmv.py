@@ -305,7 +305,8 @@ def make_libmv(**kwargs) -> EstimatorInstance:
         return primary, torch.rand(tuple(lead) + (h_count, k), generator=generator, device=device)
 
     def estimate(state: PrevMotion, flow: SparseFlow, camera, generator=None, props=None,
-                 dense=False, fit_idx=None, move_magnitude=None):
+                 dense=False, fit_idx=None, move_magnitude=None, plain=False):
+        # ``plain`` is accepted and unused: no hand kernel to stand in for.
         if fit_idx is None:
             w = flow.mask
             idx = (draw_dense(generator, w.shape[:-1], w.shape[-1], h_count, k, w.device)

@@ -134,8 +134,9 @@ def make_multiview(**kwargs) -> EstimatorInstance:
     h_count, k = hypothesis_count(params), sample_size(params)
 
     def estimate(state, flow: SparseFlow, camera, generator=None, props=None,
-                 dense=False, fit_idx=None, move_magnitude=None):
-        # ``move_magnitude`` is accepted and unused, as in the reference.
+                 dense=False, fit_idx=None, move_magnitude=None, plain=False):
+        # ``move_magnitude`` is accepted and unused, as in the reference;
+        # ``plain`` too, with no hand kernel to stand in for.
         rot = estimate_essential_rotation(
             generator, params, flow, camera,
             max_error=(props or {}).get("max_error"), dense=dense, fit_idx=fit_idx,

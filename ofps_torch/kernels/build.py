@@ -27,7 +27,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("flow_refine.cu", "flow_refine_small.cu", "warp.cu")
+SOURCES = ("flow_refine.cu", "flow_refine_small.cu", "warp.cu", "almeida_ransac.cu")
 HEADERS = ("level_refine.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -53,6 +53,8 @@ _SIGNATURES = {
     "ofps_guard_select": [_P] * 8 + [_I] * 4 + [_P],
     # img, u, v, out, B, h, w, stream
     "ofps_warp_bilinear": [_P] * 4 + [_I] * 3 + [_P],
+    # &Args (kernels/almeida.py _Args), stream
+    "ofps_almeida_ransac": [_P, _P],
 }
 
 

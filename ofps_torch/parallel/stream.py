@@ -115,8 +115,9 @@ class StreamPipeline:
 
     ``emit_dense_flow=False`` is the serving configuration: the finest level
     emits the grid sums directly and no full-resolution flow is stored.
-    ``plain=True`` runs the plain PyTorch versions of the kernels (the
-    reference the kernel path is checked and timed against).
+    ``plain=True`` runs the plain PyTorch versions of the kernels, the flow's
+    and almeida's RANSAC's (the reference the kernel path is checked and
+    timed against).
 
     ``shardings``: a :class:`StreamSharding` whose mesh replaces ``device``.
     The state is then a :class:`RowShards` of per-row states (from
@@ -275,6 +276,8 @@ class StreamPipeline:
         for i, est in enumerate(self.estimators):
             eprops = props["estimators"][i] if props is not None else None
             extra = {} if draws[i] is None else {"fit_idx": draws[i]}
+            if self.plain:
+                extra["plain"] = True
             r, t, st = est.estimate(
                 est_states[i], sparse, self.camera, props=eprops, dense=dense, **extra
             )
@@ -295,16 +298,17 @@ class StreamPipeline:
     def _run_consumers(self, state: StreamState, field, draws, props):
         """:meth:`_consume`, replayed as a CUDA graph on CUDA.
 
-        Eagerly the estimators' LSQ loops and RANSAC stages are 20-31k small
-        launches a step, so the step is bound by the host launching them; a
-        graph replays the same kernels in one launch.  A graph is captured
-        per input kind (grid or sparse flow), shapes and dtypes, and set of
-        prop names: the field, the integrated poses, the draws (a tensor or
-        a tuple of tensors per estimator), the estimators' carries and the
-        props' values (0-d float32 tensors) are its static inputs, so a new
-        prop value is a copy, not a new graph.  The new carries come out
-        with the other outputs.  It runs eagerly on the CPU, and where a
-        prop is neither a number nor a 0-d tensor.
+        Eagerly the estimators' RANSAC stages are thousands of small
+        launches a step (homography ~1,900, multiview and libmv ~5,400
+        each; almeida's are three hand kernels), so the step is bound by the
+        host launching them; a graph replays the same kernels in one
+        launch.  A graph is captured per input kind (grid or sparse flow),
+        shapes and dtypes, and set of prop names: the field, the integrated
+        poses, the draws (a tensor or a tuple of tensors per estimator), the
+        estimators' carries and the props' values (0-d float32 tensors) are
+        its static inputs, so a new prop value is a copy, not a new graph.
+        The new carries come out with the other outputs.  It runs eagerly on
+        the CPU, and where a prop is neither a number nor a 0-d tensor.
         """
         names, values = (_prop_tensors(props, self.device) if self.device.type == "cuda"
                          else (None, None))

@@ -7,10 +7,13 @@ On the CUDA graph of the serving step's consumers nearly every dispatched
 operation is one kernel launch, so this count (views excluded) is the
 launch budget of an estimator, without a card.  For each built-in
 estimator at the 1080p serving grid (84x150, dense draws), it
-prints the total and, but for almeida, the split by the innermost of its
-stages (``ops/solve``, ``ops/epipolar``, ``ops/five_point``, ``ops/robust``
-and libmv helpers; the rest is the stage code of ``robust_fit``, the
-estimator and its other ops).  libmv runs from the empty carry.
+prints the total and the split by the innermost of its stages
+(``ops/solve``, ``ops/epipolar``, ``ops/five_point``, ``ops/robust``, libmv
+helpers and almeida's ``ransac_plain``; the rest is the stage code of
+``robust_fit``, the estimator and its other ops).  libmv runs from the
+empty carry.  Almeida's count is its CPU path, the plain version; on CUDA
+``ransac_plain``'s operations are the hand kernels' three launches
+(``kernels/almeida.ransac``), so its line also gives the CUDA count.
 """
 
 from __future__ import annotations
@@ -34,8 +37,10 @@ STAGES = (
     "_trig_eval", "_tangent_seeds", "_reduced_bpoly", "five_point_essential",
     "seven_point_fundamental", "eight_point_fundamental", "refine_pose_sampson",
     "rotation_only_fallback", "recover_pose_from_essential", "sampson_error",
-    "rasterize_prev", "find_nearest", "robust_fit",
+    "rasterize_prev", "find_nearest", "robust_fit", "ransac_plain",
 )
+# Launches of kernels/almeida.ransac in place of ransac_plain on CUDA.
+ALMEIDA_KERNEL_LAUNCHES = 3
 
 
 def main() -> None:
@@ -78,9 +83,13 @@ def main() -> None:
         est.estimate(carry, flow, cam, dense=True, fit_idx=draws)  # fill the caches
         with Count() as count:
             est.estimate(carry, flow, cam, dense=True, fit_idx=draws)
-        split = "" if name == "almeida" else f": {dict(count.by_stage.most_common())}"
-        print(f"{name} B={args.batch}: {sum(count.by_stage.values())} operations{split}",
-              flush=True)
+        total = sum(count.by_stage.values())
+        line = f"{name} B={args.batch}: {total} operations"
+        if name == "almeida":
+            cuda = total - count.by_stage["ransac_plain"] + ALMEIDA_KERNEL_LAUNCHES
+            line += (f" on the CPU's plain path, {cuda} on CUDA ({ALMEIDA_KERNEL_LAUNCHES} "
+                     f"kernel launches for ransac_plain's {count.by_stage['ransac_plain']})")
+        print(f"{line}: {dict(count.by_stage.most_common())}", flush=True)
 
 
 if __name__ == "__main__":

@@ -9,7 +9,12 @@ is the one ``chip_smoke.py`` holds the card to: under 0.1% of pixels off by
 more than 1e-3 px, none by more than one candidate step, grid sums within
 1e-5 normalized; the warp and the guard exact, and a refine with the
 fused median (``median_in``) exactly the refine of the median-filtered
-flow (a median is an exact selection).  The kernels multiply
+flow (a median is an exact selection).  Almeida's RANSAC kernels give the
+plain version's winner and inlier count exactly and its rotation within
+1e-6 rad: the kernels follow PyTorch's operations on the card (a multiply
+by the reciprocal where it divides by a host scalar, the card's order of
+a 3-point sum), the CPU plain version divides and sums in its own order,
+and the refit's sums take another order.  The kernels multiply
 the box sum by 1/win^2 (as PyTorch does on the card), where the CPU plain
 version divides: near-ties may flip.  What the CUDA compiler makes of the
 sources is tested on the card only (``-m cuda``).
@@ -27,10 +32,16 @@ import pytest
 import torch
 from scipy.ndimage import gaussian_filter
 
+from ofps_torch.core.camera import StandardCamera
+from ofps_torch.core.motion import SparseFlow
+from ofps_torch.estimators import almeida as est_almeida
+from ofps_torch.kernels import almeida as kalm
 from ofps_torch.kernels import build
 from ofps_torch.kernels import flow_refine as kfr
 from ofps_torch.kernels import flow_refine_small as kfs
 from ofps_torch.kernels import warp as kwarp
+from ofps_torch.ops import robust
+from ofps_torch.ops.geometry_uv import delta_planes, qmat
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 EMU_HEADER = Path(__file__).resolve().parent / "cuda_cpu_emu.h"
@@ -280,3 +291,142 @@ def test_kernel_rejects_unbuilt_window(emulated):
         kfr.flow_refine(a, b, a, b, 9)
     with pytest.raises(ValueError):
         kfs.flow_refine_small(a, b, a, b, 1, 4)
+
+
+# -- almeida's RANSAC --------------------------------------------------------
+
+ALMEIDA_CAM = StandardCamera.create(16 / 9, 90.0)
+
+
+def _almeida_flow(seed, batch, n, valid=1.0, noise=1e-4, outliers=0.08):
+    """(B, n) points under a small rotation per stream, with noise and a
+    share of outliers; ``valid`` < 1 masks a random share of the points."""
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(0.02, 0.98, (batch, n, 2)).astype(np.float32)
+    q = rng.normal(0, 1, (batch, 4)) * np.array([0, 1, 1, 1]) * 0.003
+    q[:, 0] = 1.0
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    r = tuple(c[:, None] for c in qmat(tuple(_t(q[:, i]) for i in range(4))))
+    du, dv = delta_planes(ALMEIDA_CAM, _t(pos[..., 0]), _t(pos[..., 1]), r)
+    mot = np.stack([du.numpy(), dv.numpy()], -1) + rng.normal(0, noise, (batch, n, 2))
+    bad = rng.uniform(size=(batch, n)) < outliers
+    mot[bad] = rng.uniform(-0.02, 0.02, (int(bad.sum()), 2))
+    mask = (rng.uniform(size=(batch, n)) < valid).astype(np.float32)
+    return SparseFlow(_t(pos), _t(mot), _t(mask))
+
+
+def _almeida_inputs(flow, seed, dense, h=200, s=1000):
+    """The hypotheses' indices and the eval subset, as solve_ypr_ransac
+    makes them."""
+    gen = torch.Generator().manual_seed(seed)
+    b, n = flow.mask.shape
+    draws = robust.draw(gen, (b,), n, h, 3, "cpu", dense=dense)
+    fit_idx = robust.as_indices(draws, flow.mask)
+    if dense:
+        eidx, w_e = (x.expand((b,) + x.shape) for x in robust.dense_eval_subset(n, s, "cpu"))
+    else:
+        eidx, w_e = robust.eval_subset(flow.mask, s)
+    return fit_idx, eidx, w_e
+
+
+def _rot_gap(a, b):
+    """Angle (rad) between unit quaternions (..., 4), in float64."""
+    a, b = a.to(torch.float64), b.to(torch.float64)
+    w = (a * b).sum(-1)
+    x = a[..., 0:1] * b[..., 1:] - b[..., 0:1] * a[..., 1:] - torch.linalg.cross(a[..., 1:], b[..., 1:])
+    return 2 * torch.atan2(torch.linalg.vector_norm(x, dim=-1), w.abs())
+
+
+def _check_ransac(flow, fit_idx, eidx, w_e, bound):
+    before = kalm.ransac.launches
+    got = kalm.ransac(ALMEIDA_CAM, flow, fit_idx, eidx, w_e, bound)
+    assert kalm.ransac.launches == before + 3
+    ref = kalm.ransac_plain(ALMEIDA_CAM, flow, fit_idx, eidx, w_e, bound)
+    assert torch.equal(got[1].long(), ref[1]) and torch.equal(got[2].long(), ref[2])
+    assert _rot_gap(got[0], ref[0]).max().item() <= 1e-6
+    return got, ref
+
+
+@pytest.mark.parametrize("dense,s", [(True, 1000), (False, 1000), (True, 1500)],
+                         ids=["dense", "masked", "dense-two-chunks"])
+def test_almeida_ransac_emulated(emulated, dense, s):
+    """B=2, N=2000, H=200, S=1000: dense draws over all-valid points, and
+    masked draws (uniforms mapped to the valid points) with a fifth of the
+    points invalid; S=1500 is staged in two chunks.  The winner and its
+    count exact, the rotation within 1e-6 rad, against the plain version."""
+    flow = _almeida_flow(20, 2, 2000, valid=1.0 if dense else 0.8)
+    fit_idx, eidx, w_e = _almeida_inputs(flow, 21, dense, s=s)
+    bound = est_almeida._inlier_bound(0.05, flow.pos)
+    got, ref = _check_ransac(flow, fit_idx, eidx, w_e, bound)
+    assert (ref[2] > s // 2).all()  # a real winner, not the identity
+    rot = est_almeida.solve_ypr_ransac(None, ALMEIDA_CAM, flow, 200, 0.05, s, dense=dense,
+                                       fit_idx=robust.draw(torch.Generator().manual_seed(21),
+                                                           (2,), 2000, 200, 3, "cpu", dense))
+    assert _rot_gap(rot, ref[0]).max().item() <= 1e-6
+
+
+def test_almeida_ransac_few_inliers_emulated(emulated):
+    """A stream with two valid points has fewer than 3 inliers: identity,
+    beside a stream with a winner."""
+    flow = _almeida_flow(22, 2, 2000, valid=0.9)
+    mask = flow.mask.clone()
+    mask[1] = 0.0
+    mask[1, 17] = mask[1, 1500] = 1.0
+    flow = flow._replace(mask=mask)
+    fit_idx, eidx, w_e = _almeida_inputs(flow, 23, dense=False)
+    got, ref = _check_ransac(flow, fit_idx, eidx, w_e, est_almeida._inlier_bound(0.05, flow.pos))
+    assert int(ref[2][1]) <= 2 and int(ref[2][0]) > 500
+    assert torch.equal(got[0][1], torch.tensor([1.0, 0.0, 0.0, 0.0]))
+
+
+def test_almeida_ransac_first_maximum_emulated(emulated):
+    """The winner's draws planted again at rows 37 and 190 (other blocks of
+    the fit kernel): equal counts, and the first maximum wins."""
+    flow = _almeida_flow(24, 2, 2000)
+    fit_idx, eidx, w_e = _almeida_inputs(flow, 25, dense=True)
+    bound = est_almeida._inlier_bound(0.05, flow.pos)
+    won = kalm.ransac_plain(ALMEIDA_CAM, flow, fit_idx, eidx, w_e, bound)[1]
+    planted = fit_idx.clone()
+    for b in range(2):
+        planted[b, 37] = planted[b, 190] = fit_idx[b, won[b]]
+    got, ref = _check_ransac(flow, planted, eidx, w_e, bound)
+    assert torch.equal(ref[1], torch.minimum(won, torch.tensor(37)))
+
+
+def test_almeida_ransac_bound_tensor_emulated(emulated):
+    """``inlier_angle_deg`` as a 0-d tensor (a prop of the consumers'
+    graph): read on the device, one bound for every stream; per stream
+    bounds take their own."""
+    flow = _almeida_flow(26, 2, 2000)
+    fit_idx, eidx, w_e = _almeida_inputs(flow, 27, dense=True)
+    for deg in (torch.tensor(0.05), torch.tensor([0.05, 0.003])):
+        bound = est_almeida._inlier_bound(deg, flow.pos)
+        got, ref = _check_ransac(flow, fit_idx, eidx, w_e, bound)
+    assert int(ref[2][1]) < int(_check_ransac(
+        flow, fit_idx, eidx, w_e, est_almeida._inlier_bound(0.05, flow.pos))[1][2][1])
+
+
+@pytest.mark.parametrize("plain", [False, True], ids=["kernels", "plain"])
+def test_almeida_plain_pipeline_takes_the_plain_version_emulated(emulated, plain):
+    """The consumers of a ``StreamPipeline(plain=True)`` run almeida's plain
+    version (no launch), those of a kernel pipeline the kernels (three
+    launches); their rotations agree within 1e-6 rad."""
+    from ofps_torch.core.motion import field_to_sparse
+    from ofps_torch.estimators.base import create_estimator
+    from ofps_torch.parallel.stream import StreamPipeline
+
+    pipe = StreamPipeline(ALMEIDA_CAM, [create_estimator("almeida")], device="cpu",
+                          plain=plain)
+    state = pipe.init_state(2, 60, 80)
+    flow = _almeida_flow(28, 2, 30 * 40)
+    grid = flow.motion.reshape(2, 30, 40, 2)
+    sparse = field_to_sparse(grid)
+    draws = (pipe.estimators[0].draw(torch.Generator().manual_seed(29), (2,), 1200, "cpu"),)
+    before = kalm.ransac.launches
+    rot = pipe._consume(state.est, state.rot, state.pos, grid, draws)[2][0]
+    assert kalm.ransac.launches == before + (0 if plain else 3)
+    eidx, w_e = (x.expand((2,) + x.shape) for x in robust.dense_eval_subset(1200, 1000, "cpu"))
+    ref = kalm.ransac_plain(ALMEIDA_CAM, sparse, draws[0], eidx, w_e,
+                            est_almeida._inlier_bound(0.05, sparse.pos))
+    assert _rot_gap(rot, ref[0]).max().item() <= 1e-6
+    assert (ref[2] >= 3).all()

@@ -31,8 +31,11 @@ from ofps_torch.core.camera import StandardCamera as TCam
 from ofps_torch.core.motion import field_to_sparse
 from ofps_torch.detectors.base import create_detector as t_det
 from ofps_torch.device import check_fp32_policy, resolve_device
+from ofps_torch.estimators import almeida as talm
 from ofps_torch.estimators import homography as the
 from ofps_torch.estimators.base import create_estimator as t_est
+from ofps_torch.kernels import almeida as kalm
+from ofps_torch.ops import robust as trob
 from ofps_torch.parallel.stream import StreamPipeline as TPipe
 from ofps_tpu.core.camera import StandardCamera as JCam
 from ofps_tpu.detectors.base import create_detector as j_det
@@ -367,3 +370,51 @@ def test_graphed_consumers_match_eager_on_cuda(names):
             eager = tp._consume(state.est, state.rot, state.pos, out.grid, draws, props)
             assert len(tp._graphs) == 2
             assert torch.equal(graphed[2][i], eager[2][i])
+
+
+@pytest.mark.cuda
+def test_almeida_kernel_in_consumers_graph_on_cuda():
+    """On the card almeida's RANSAC is three hand-kernel launches in the
+    consumers' graph: a capture launches them twice (its eager warm-up and
+    the captured call) and a replay none from the host; the replay's
+    rotations equal the eager plain path's (``plain=True``) within 1e-6
+    rad, with the same winners and counts; and the graph has at least
+    17,000 fewer nodes than the plain pipeline's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    frames = torch.from_numpy(_frames(2)).to(dev)
+
+    def stepped(plain):
+        tp = TPipe(TCam.create(W / H, 60.0), [t_est("almeida"), t_est("homography")],
+                   t_det("block_motion"), flow_params=interop.flow_params_from_jax(JPARAMS),
+                   emit_dense_flow=False, device=dev, plain=plain)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        state, _ = tp.step_from_frames(tp.init_state(B, H, W), frames[0], gen)
+        state, out = tp.step_from_frames(state, frames[1], gen)
+        return tp, state, out, gen
+
+    kalm.ransac.launches = 0
+    tp, state, out, gen = stepped(False)
+    assert kalm.ransac.launches == 6 and tp.graph_replays == 2 and tp.eager_runs == 0
+    (nodes,) = [g.nodes for g in tp._graphs.values()]
+    draws = tuple(e.draw(gen, (B,), 90 * 150, dev) for e in tp.estimators)
+    graphed = tp._run_consumers(state, out.grid, draws, None)
+    assert kalm.ransac.launches == 6
+    sparse = field_to_sparse(out.grid)
+    eidx, w_e = (x.expand((B,) + x.shape) for x in trob.dense_eval_subset(90 * 150, 1000, "cuda"))
+    bound = talm._inlier_bound(0.05, sparse.pos)
+    got = kalm.ransac(tp.camera, sparse, draws[0], eidx, w_e, bound)
+    ref = kalm.ransac_plain(tp.camera, sparse, draws[0], eidx, w_e, bound)
+    assert torch.equal(got[1].long(), ref[1]) and torch.equal(got[2].long(), ref[2])
+
+    tp_plain = stepped(True)[0]
+    assert kalm.ransac.launches == 9  # the one direct call above
+    eager = tp_plain._consume(state.est, state.rot, state.pos, out.grid, draws)
+    assert kalm.ransac.launches == 9
+    for g, e in zip(graphed[2], eager[2]):
+        assert tq.angle_to(g.double(), e.double()).max().item() <= 1e-6
+    assert torch.allclose(graphed[2][0], ref[0], rtol=0, atol=1e-6)
+    (plain_nodes,) = [g.nodes for g in tp_plain._graphs.values()]
+    assert plain_nodes - nodes >= 17000
