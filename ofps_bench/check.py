@@ -35,16 +35,24 @@ applied to the served rotation of the step before.
   off the reference's by more than 1e-3 px.
 * ``warm_off`` (frames): the share of the handed-on warm start's pixels
   off by more than 1e-3 px.
+
+A configuration without estimators has no rotation or pose numbers.  A
+key of ``limits`` that no number above covers is computed by
+``ofps_bench/checks/<key>.py``: ``number(cell, seed, served, ref, checked)
+-> float``, where ``served.outputs["result"]`` is the program's whole
+result (``run_batch``'s ``BatchResult``; the frames path's fetched records,
+one a step).  A limit that neither computes fails when the cell loads.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
 
-from ofps_bench import inputs
+from ofps_bench import inputs, spec
 from ofps_bench.reference import quat
 from ofps_bench.reference.motion import grid_size_for
 from ofps_bench.reference.step import Consumed, Reference, angle_deg
@@ -67,28 +75,21 @@ def _rows(bank: inputs.CodecBank, step: int, capacity: int, device) -> torch.Ten
     return torch.from_numpy(out).to(device)
 
 
-def _gaps(ref: Consumed, delta: np.ndarray, rot: np.ndarray, rot_prev: np.ndarray):
-    """Per estimator the (B,) delta and pose gaps (degrees) of one step:
-    ``delta``, ``rot``, ``rot_prev`` (E, B, 4) served."""
+def _gaps(ref: Consumed, delta: List[np.ndarray], rot: List[np.ndarray], t: int):
+    """Per estimator the (B,) delta and pose gaps (degrees) of step ``t``:
+    ``delta``, ``rot`` per estimator (T, B, 4) served."""
     out = []
-    for e, (r, fam) in enumerate(zip(ref.delta, ref.families)):
+    for r, fam, d_e, r_e in zip(ref.delta, ref.families, delta, rot, strict=True):
         cands = (r[:, None, :] if fam is None else fam).detach().cpu().to(torch.float64)
-        served = torch.from_numpy(delta[e]).to(torch.float64)
-        prev = torch.from_numpy(rot_prev[e]).to(torch.float64)
-        pose = torch.from_numpy(rot[e]).to(torch.float64)
+        served = torch.from_numpy(d_e[t]).to(torch.float64)
+        pose = torch.from_numpy(r_e[t]).to(torch.float64)
+        # The served rotation before step t (identity before step 0).
+        prev = (torch.from_numpy(r_e[t - 1]).to(torch.float64) if t > 0
+                else quat.identity(torch.float64).expand_as(pose))
         d = angle_deg(served[:, None, :], cands).min(dim=1).values
         expect = quat.mul(cands, prev[:, None, :].expand_as(cands))
         p = angle_deg(pose[:, None, :], expect).min(dim=1).values
         out.append((d, p))
-    return out
-
-
-def _prev_rot(rot: np.ndarray, t: int) -> np.ndarray:
-    """(E, B, 4) served rotation before step ``t`` (identity before 0)."""
-    if t > 0:
-        return rot[:, t - 1]
-    out = np.zeros(rot[:, 0].shape, np.float32)
-    out[..., 0] = 1.0
     return out
 
 
@@ -101,8 +102,6 @@ def codec_numbers(cell, seed: int, out, window: range, ref: Reference,
                        for t in window])
     nums = {"vectors_off": float((out["vectors"][window.start:window.stop] != bank_n).sum())}
     checked = sorted(set(checked))
-    rot = np.stack(out["rot"])  # (E, T, B, 4)
-    delta = np.stack(out["delta"])
     gen = torch.Generator(device=ref.device).manual_seed(seed)
     det_off = 0
     for t in range(max(checked) + 1):
@@ -110,7 +109,7 @@ def codec_numbers(cell, seed: int, out, window: range, ref: Reference,
         if t not in checked:
             continue
         got = ref.codec_step(_rows(bank, t, cap, ref.device), draws)
-        for d, p in _gaps(got, delta[:, t], rot[:, t], _prev_rot(rot, t)):
+        for d, p in _gaps(got, out["delta"], out["rot"], t):
             nums["delta_deg"] = max(nums.get("delta_deg", 0.0), float(d.max()))
             nums["pose_deg"] = max(nums.get("pose_deg", 0.0), float(p.max()))
         if got.detected is not None:
@@ -127,8 +126,6 @@ def frames_gaps(cell, seed: int, out, ref: Reference,
     b, n_bank = cell.traffic["streams"], cell.traffic["bank_frames"]
     held = out["held"]
     checked = sorted(t for t in set(checked) if t in held)
-    rot = np.stack(out["rot"])
-    delta = np.stack(out["delta"])
     gen = torch.Generator(device=ref.device).manual_seed(seed)
     props = ref.device_props()
     gw, gh = grid_size_for(cell.config["width"], cell.config["height"])
@@ -156,7 +153,7 @@ def frames_gaps(cell, seed: int, out, ref: Reference,
                             (warm[1] - h["warm_out"][1].to(dev)).abs())
         warm_off = max(warm_off, float((off > MISMATCH_PX).float().mean()))
         got = ref.consume(grid, draws, props)
-        for e, (d, p) in enumerate(_gaps(got, delta[:, t], rot[:, t], _prev_rot(rot, t))):
+        for e, (d, p) in enumerate(_gaps(got, out["delta"], out["rot"], t)):
             d_gaps[e].append(d)
             p_gaps[e].append(p)
         if got.detected is not None:
@@ -175,18 +172,45 @@ def off_steps(gaps: torch.Tensor) -> float:
 def frames_numbers(cell, seed: int, out, window: range, ref: Reference,
                    checked: Iterable[int]) -> Dict[str, float]:
     g = frames_gaps(cell, seed, out, ref, checked)
-    return {
+    nums = {
         "grid_off": float((g["grid"] > MISMATCH_PX).float().mean()),
         "warm_off": g["warm_off"],
-        "delta_q75_deg": max(float(torch.quantile(x.flatten(), 0.75)) for x in g["delta"]),
-        "pose_q75_deg": max(float(torch.quantile(x.flatten(), 0.75)) for x in g["pose"]),
-        "delta_off_steps": max(off_steps(x) for x in g["delta"]),
-        "pose_off_steps": max(off_steps(x) for x in g["pose"]),
         "det_off": float(g["det_off"]),
     }
+    if g["delta"]:
+        nums.update(
+            delta_q75_deg=max(float(torch.quantile(x.flatten(), 0.75)) for x in g["delta"]),
+            pose_q75_deg=max(float(torch.quantile(x.flatten(), 0.75)) for x in g["pose"]),
+            delta_off_steps=max(off_steps(x) for x in g["delta"]),
+            pose_off_steps=max(off_steps(x) for x in g["pose"]),
+        )
+    return nums
 
 
 NUMBERS = {"codec_mvec": codec_numbers, "frames": frames_numbers}
+# The names of the numbers above: those of every configuration of the
+# input, and those of a configuration with estimators.
+BUILTIN = {
+    "codec_mvec": (("vectors_off", "det_off"), ("delta_deg", "pose_deg")),
+    "frames": (("grid_off", "warm_off", "det_off"),
+               ("delta_q75_deg", "pose_q75_deg", "delta_off_steps", "pose_off_steps")),
+}
+
+
+def builtin_numbers(config) -> List[str]:
+    always, rotations = BUILTIN[config["input"]]
+    return list(always) + (list(rotations) if config["estimators"] else [])
+
+
+def file_limits(config, root: Path) -> List[str]:
+    """The keys of ``limits`` that no built-in number covers, each computed
+    by ``ofps_bench/checks/<key>.py``; raises where no file computes one."""
+    keys = [k for k in config["limits"] if k not in builtin_numbers(config)]
+    missing = [k for k in keys if not spec.check_path(k, root).is_file()]
+    if missing:
+        raise ValueError(f"{config['name']}: nothing computes the limits {missing} "
+                         f"(built in: {builtin_numbers(config)}; no ofps_bench/checks/<key>.py)")
+    return keys
 
 
 def checked_steps(cell, seed: int, window: range, out) -> List[int]:
@@ -215,8 +239,12 @@ def passed(checks: Dict[str, Dict[str, float]]) -> bool:
 
 def numbers_of(cell, seed: int, served, device,
                checked: Optional[List[int]] = None) -> Dict[str, float]:
-    """The numbers of ``served``'s outputs, judged by the float32 reference."""
+    """The numbers of ``served``'s outputs, judged by the float32 reference:
+    the built-in ones, then those of the configuration's check files."""
     ref = Reference(cell.config, device)
     if checked is None:
         checked = checked_steps(cell, seed, served.window, served.outputs)
-    return NUMBERS[cell.config["input"]](cell, seed, served.outputs, served.window, ref, checked)
+    nums = NUMBERS[cell.config["input"]](cell, seed, served.outputs, served.window, ref, checked)
+    for key in file_limits(cell.config, cell.root):
+        nums[key] = float(spec.check_number(key, cell.root)(cell, seed, served, ref, checked))
+    return nums

@@ -1,7 +1,6 @@
-"""Host decode at 32 streams, read as ``decode_wait_ms`` is: the program's
-``PerfStats`` "decode", mean ms a window step before the profiler started.
-A metric of its own because the cell that reports it moves ``stream_fps``
-and not ``step_p95_ms``."""
+"""Host decode at 32 streams (``pipeline/runtime.DecoderFeed``,
+``decoders/mvec``): the program's ``PerfStats`` "decode", the main thread's
+wait on the B feeds, mean ms a window step before the profiler started."""
 
 
 def read(rec):

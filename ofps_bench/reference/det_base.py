@@ -1,4 +1,6 @@
-# Trimmed frozen copy of the port's ``ofps_torch/detectors/base.py``.
+# Trimmed frozen copy of the port's ``ofps_torch/detectors/base.py``.  The
+# registry finds a detector by its name: ``ofps_bench/reference/<name>.py``
+# registers itself when imported.
 """Detector record and registry of the reference."""
 
 from __future__ import annotations
@@ -7,6 +9,8 @@ import dataclasses
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
+
+from ofps_bench.reference.est_base import resolve
 
 _REGISTRY: Dict[str, Callable[..., "DetectorInstance"]] = {}
 
@@ -36,6 +40,4 @@ def register(name: str):
 
 
 def create_detector(name: str, **kwargs) -> DetectorInstance:
-    from ofps_bench.reference import block_motion  # noqa: F401  (registers)
-
-    return _REGISTRY[name](**kwargs)
+    return resolve(_REGISTRY, "detector", name)(**kwargs)

@@ -1,11 +1,14 @@
 # Trimmed frozen copy of the port's ``ofps_torch/estimators/base.py``: the
-# estimator record, its registry and the cached intrinsics.
+# estimator record, its registry and the cached intrinsics.  The registry
+# finds an estimator by its name: ``ofps_bench/reference/<name>.py``
+# registers itself when imported.  ``families`` is the benchmark's own hook.
 """Estimator record and registry of the reference."""
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import importlib
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -32,6 +35,10 @@ class EstimatorInstance:
         default_factory=lambda: (lambda: {})
     )
     draw: Optional[Callable[..., Any]] = None
+    # (flow, camera, props, dense, fit_idx) -> (..., F, 4): every rotation
+    # the estimator may return where rounding picks among them (the check
+    # takes the nearest); None where it returns one.
+    families: Optional[Callable[..., torch.Tensor]] = None
 
 
 def register(name: str):
@@ -42,7 +49,21 @@ def register(name: str):
     return deco
 
 
-def create_estimator(name: str, **kwargs) -> EstimatorInstance:
-    from ofps_bench.reference import almeida, homography  # noqa: F401  (registers)
+def resolve(registry: Dict[str, Callable], kind: str, name: str) -> Callable:
+    """The factory registered as ``name``, importing
+    ``ofps_bench.reference.<name>`` first, which registers it."""
+    module = f"ofps_bench.reference.{name}"
+    if name not in registry:
+        try:
+            importlib.import_module(module)
+        except ModuleNotFoundError as e:
+            if e.name != module:
+                raise
+    if name not in registry:
+        raise KeyError(f"no reference {kind} {name!r}: module {module} does not register it; "
+                       f"registered: {sorted(registry)}")
+    return registry[name]
 
-    return _REGISTRY[name](**kwargs)
+
+def create_estimator(name: str, **kwargs) -> EstimatorInstance:
+    return resolve(_REGISTRY, "estimator", name)(**kwargs)

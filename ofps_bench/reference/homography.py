@@ -1,5 +1,6 @@
 # Frozen copy of the port's plain ``ofps_torch/estimators/homography.py`` (the benchmark's
-# reference; it imports nothing of the port).
+# reference; it imports nothing of the port), with the benchmark's ``families``
+# hook added to the estimator record.
 """Homography camera-rotation estimator (port of
 ``ofps_tpu.estimators.homography``).
 
@@ -146,6 +147,14 @@ def make_homography(**kwargs) -> EstimatorInstance:
         tr = torch.zeros(rot.shape[:-1] + (3,), dtype=torch.float32, device=rot.device)
         return rot, tr, state
 
+    def families(flow: SparseFlow, camera, props=None, dense=False, fit_idx=None):
+        # The two decomposition families: which one ``estimate`` returns is
+        # set by rounding (``rotation_candidates``).
+        h = refined_homography(None, params, flow, camera,
+                               max_error=(props or {}).get("max_error"), dense=dense,
+                               fit_idx=fit_idx)
+        return rotation_candidates(h, camera)[0]
+
     return EstimatorInstance(
         name="homography",
         params=params,
@@ -154,4 +163,5 @@ def make_homography(**kwargs) -> EstimatorInstance:
         dyn_defaults=lambda: {"max_error": float(params.max_error)},
         draw=lambda generator, lead, n, device, dense=True: draw(
             generator, lead, n, h_count, 4, device, dense),
+        families=families,
     )

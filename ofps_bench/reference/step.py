@@ -10,7 +10,12 @@ copies beside this file, eagerly, stream batch as the leading axis.
   RANSAC and the detector's dense ``detect_field``.
 
 The RANSAC draws come from :meth:`Reference.draws`, which makes the same
-calls, in the same order, as the served step makes on its generator.
+calls, in the same order, as the served step makes on its generator.  An
+estimator that carries state from step to step (libmv's ``PrevMotion``)
+starts from ``states`` where a step is given them (the :class:`Consumed`
+``states`` of the step before), else from its ``init()`` tiled to the
+batch, as the served pipeline starts.  Estimators and detectors are found
+by name (``est_base.create_estimator``, ``det_base.create_detector``).
 ``precision="tf32"`` lets matrix products round their inputs to TF32 (the
 control); the configuration states float32 with TF32 off.
 """
@@ -18,7 +23,7 @@ control); the configuration states float32 with TF32 off.
 from __future__ import annotations
 
 import contextlib
-from typing import List, NamedTuple, Optional
+from typing import Any, List, NamedTuple, Optional
 
 import torch
 
@@ -34,7 +39,6 @@ from ofps_bench.reference.flow import (
     frame_cache,
     grid_fusable,
 )
-from ofps_bench.reference.homography import refined_homography, rotation_candidates
 from ofps_bench.reference.motion import SparseFlow, field_to_sparse, grid_downsample_uv, grid_size_for
 
 
@@ -42,6 +46,8 @@ class Consumed(NamedTuple):
     delta: List[torch.Tensor]  # per estimator (B, 4)
     families: List[Optional[torch.Tensor]]  # per estimator (B, F, 4) candidates, or None
     detected: Optional[torch.Tensor]  # (B,) bool
+    tr: List[torch.Tensor]  # per estimator (B, 3) translation
+    states: List[Any]  # per estimator the state handed on to the next step
 
 
 @contextlib.contextmanager
@@ -85,18 +91,24 @@ class Reference:
         return {"estimators": tuple(t(e.dyn_defaults()) for e in self.ests),
                 "detector": t(self.det.dyn_defaults()) if self.det else {}}
 
-    def consume(self, field, draws, props=None) -> Consumed:
+    def consume(self, field, draws, props=None, states=None) -> Consumed:
         dense = isinstance(field, torch.Tensor)
         sparse = field_to_sparse(field) if dense else field
-        deltas, families = [], []
+        if states is None:  # every estimator's init() tiled to the streams
+            lead = tuple(sparse.mask.shape[:-1])
+            states = [_tiled(est.init(), lead, self.device) for est in self.ests]
+        deltas, families, trs, new_states = [], [], [], []
         with precision(self.mode):
             for i, est in enumerate(self.ests):
                 eprops = props["estimators"][i] if props is not None else None
                 extra = {} if draws[i] is None else {"fit_idx": draws[i]}
-                r, _, _ = est.estimate(est.init(), sparse, self.camera, props=eprops,
-                                       dense=dense, **extra)
+                r, tr, st = est.estimate(states[i], sparse, self.camera, props=eprops,
+                                         dense=dense, **extra)
                 deltas.append(r)
-                families.append(self._families(est, sparse, eprops, dense, draws[i]))
+                trs.append(tr)
+                new_states.append(st)
+                families.append(None if est.families is None else
+                                est.families(sparse, self.camera, eprops, dense, draws[i]))
             detected = None
             if self.det is not None:
                 dprops = props["detector"] if props is not None else None
@@ -104,23 +116,12 @@ class Reference:
                     detected = self.det.detect_field(field, props=dprops).detected
                 else:
                     detected = self.det.detect(sparse, props=dprops).detected
-        return Consumed(deltas, families, detected)
+        return Consumed(deltas, families, detected, trs, new_states)
 
-    def _families(self, est, sparse, eprops, dense, draws):
-        """Homography's two decomposition families (which one the estimator
-        returns is set by rounding); None for the other estimators."""
-        if est.name != "homography":
-            return None
-        h = refined_homography(None, est.params, sparse, self.camera,
-                               max_error=(eprops or {}).get("max_error"), dense=dense,
-                               fit_idx=draws)
-        quats, _ = rotation_candidates(h, self.camera)
-        return quats
-
-    def codec_step(self, rows: torch.Tensor, draws) -> Consumed:
+    def codec_step(self, rows: torch.Tensor, draws, states=None) -> Consumed:
         """``rows`` (B, capacity, 5): pos x, pos y, motion x, motion y, mask."""
         flow = SparseFlow(rows[..., 0:2], rows[..., 2:4], rows[..., 4])
-        return self.consume(flow, draws)
+        return self.consume(flow, draws, states=states)
 
     def flow(self, prev_u8, cur_u8, warm, has_prev):
         """(grid (B, gh, gw, 2), next warm (u, v)) of one frames step."""
@@ -144,6 +145,17 @@ class Reference:
             else:
                 grid = grid_downsample_uv(u, v, gw, gh, norm_wh=(w, h), border_px=margin)
         return grid, nxt
+
+
+def _tiled(x, lead, device):
+    """The tensors of the nest ``x`` (tuples, named tuples) tiled to the
+    leading dims ``lead``."""
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return x.to(device).expand(lead + x.shape).clone()
+    fields = [_tiled(v, lead, device) for v in x]
+    return type(x)(*fields) if hasattr(x, "_fields") else tuple(fields)
 
 
 def angle_deg(a, b):

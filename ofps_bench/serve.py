@@ -16,7 +16,9 @@
   the upload to after that wait.
 
 Each returns a :class:`Served`: the window's step times, what the window
-produced, and what the check needs.
+produced, and what the check needs; ``outputs["result"]`` is the program's
+whole result (``run_batch``'s ``BatchResult``; the frames path's fetched
+records, one a step), for the check files a configuration brings.
 """
 
 from __future__ import annotations
@@ -245,6 +247,10 @@ def serve_codec(cell, seed: int, seconds: float, tracing: bool, device) -> Serve
         )
     if clock.close_step is None:
         raise RuntimeError("the window never closed: the streams ended first")
+    names = [e["name"] for e in cfg["estimators"]]
+    if res.estimator_names != names:
+        raise RuntimeError(f"run_batch ran the estimators {res.estimator_names}; "
+                           f"the configuration states {names}")
     w = range(clock.warmup, clock.close_step)
     takes = clock.takes
     step_s = [takes[t + 1] - takes[t] for t in w]
@@ -271,7 +277,7 @@ def serve_codec(cell, seed: int, seconds: float, tracing: bool, device) -> Serve
                              "second_step": takes[1]}},
         timeline=timeline,
         outputs={"bank": bank, "rot": rot, "delta": delta, "detected": res.detections,
-                 "vectors": res.vectors},
+                 "vectors": res.vectors, "result": res},
         failed=failed,
         traced=traced,
     )
@@ -301,7 +307,9 @@ def _live(cfg, batch: int, device):
 
 
 class _Fetcher:
-    """Pinned host copies of a step's poses, deltas and verdicts."""
+    """Pinned host copies of a step's poses, deltas and verdicts; ``fetch``
+    returns a step's record: per estimator its rotation, position and delta
+    (host arrays), and the verdicts."""
 
     def __init__(self, n_est: int, b: int, device):
         cuda = torch.device(device).type == "cuda"
@@ -322,8 +330,10 @@ class _Fetcher:
             ev = torch.cuda.Event()
             ev.record()
             ev.synchronize()
-        return (np.stack([r.numpy() for r in self.rot]), np.stack([d.numpy() for d in self.delta]),
-                self.det.numpy().copy())
+        return {"rot": [r.numpy().copy() for r in self.rot],
+                "pos": [p.numpy().copy() for p in self.pos],
+                "delta": [d.numpy().copy() for d in self.delta],
+                "detected": self.det.numpy().copy()}
 
 
 def serve_frames(cell, seed: int, seconds: float, tracing: bool, device) -> Served:
@@ -338,7 +348,7 @@ def serve_frames(cell, seed: int, seconds: float, tracing: bool, device) -> Serv
     pipe = live.pipe
     gen = torch.Generator(device=dev).manual_seed(seed)
     fetcher = _Fetcher(len(pipe.estimators), b, dev)
-    rots, deltas, dets, step_s, enq_s = [], [], [], [], []
+    records, step_s, enq_s = [], [], []
     held: Dict[int, Dict[str, Any]] = {}
     hold: set = set()
     tracer_prof, traced = None, range(0)
@@ -357,11 +367,8 @@ def serve_frames(cell, seed: int, seconds: float, tracing: bool, device) -> Serv
         state, out = live.step(frame, gen)
         enq = time.perf_counter() - te
         with record_function("ofps_bench.fetch"):
-            rot, delta, det = fetcher.fetch(out)
+            records.append(fetcher.fetch(out))
         t1 = time.perf_counter()
-        rots.append(rot)
-        deltas.append(delta)
-        dets.append(det)
         if t in hold:
             held[t] = {"warm_in": before.warm_uv, "grid": out.grid, "warm_out": state.warm_uv}
         return t1 - t0, enq
@@ -415,7 +422,9 @@ def serve_frames(cell, seed: int, seconds: float, tracing: bool, device) -> Serv
     if tracer_prof is not None and len(traced):
         timeline = trace.read_trace(tracer_prof)
     tracer_prof = None
-    rot = np.stack(rots, 1)  # (E, T, B, 4)
+    n_est = len(pipe.estimators)
+    rot = [np.stack([r["rot"][e] for r in records]) for e in range(n_est)]  # (T, B, 4)
+    delta = [np.stack([r["delta"][e] for r in records]) for e in range(n_est)]
     return Served(
         step_s=step_s,
         window_s=window_s,
@@ -426,9 +435,10 @@ def serve_frames(cell, seed: int, seconds: float, tracing: bool, device) -> Serv
         counters={"graph_replays_per_step": pipe.graph_replays / t,
                   "eager_runs_per_step": pipe.eager_runs / t, "stamps": stamps},
         timeline=timeline,
-        outputs={"bank": bank, "rot": list(rot), "delta": list(np.stack(deltas, 1)),
-                 "detected": np.stack(dets), "held": held},
-        failed=int((~np.isfinite(rot[:, w0:t]).all(-1)).sum()),
+        outputs={"bank": bank, "rot": rot, "delta": delta,
+                 "detected": np.stack([r["detected"] for r in records]), "held": held,
+                 "result": records},
+        failed=sum(int((~np.isfinite(r[w0:t]).all(-1)).sum()) for r in rot),
         traced=traced,
     )
 

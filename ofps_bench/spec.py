@@ -2,8 +2,11 @@
 
 A cell names a configuration (``configs[].file``) and a traffic mix
 (``ofps_bench/traffic/<traffic>.json``); a per-layer metric is read by
-``ofps_bench/metrics/<name>.py``.  Adding a cell, a configuration, a mix or
-a metric is adding files and entries: nothing here lists them.
+``ofps_bench/metrics/<name>.py``; a check number that the harness does not
+compute itself is computed by ``ofps_bench/checks/<key>.py``, named by a
+key of the configuration's ``limits``.  Adding a cell, a configuration, a
+mix, a metric or a check number is adding files and entries: nothing here
+lists them.
 """
 
 from __future__ import annotations
@@ -47,6 +50,9 @@ def load_cell(name: str, root: Path = ROOT) -> Cell:
     if traffic["input"] != config["input"]:
         raise ValueError(f"{name}: traffic {w['traffic']!r} feeds {traffic['input']!r}, "
                          f"config {w['config']!r} takes {config['input']!r}")
+    from ofps_bench import check
+
+    check.file_limits(config, root)  # every limit is computed by something
     return Cell(
         name=name, chips=int(w["chips"]), config=config, traffic=traffic,
         end_to_end=[m for m in bench["end_to_end"] if _applies(m, name)],
@@ -55,11 +61,25 @@ def load_cell(name: str, root: Path = ROOT) -> Cell:
     )
 
 
-def metric_reader(name: str, root: Path = ROOT) -> Callable[[Any], Optional[float]]:
-    """``read(record)`` of ``ofps_bench/metrics/<name>.py`` (the file name
-    may hold dots, so it is loaded by path)."""
-    path = root / "ofps_bench" / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"ofps_bench_metric_{name}", path)
+def _load(path: Path, module: str):
+    """The module of the file ``path`` (a name may hold dots, so it is
+    loaded by path)."""
+    spec = importlib.util.spec_from_file_location(module, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def metric_reader(name: str, root: Path = ROOT) -> Callable[[Any], Optional[float]]:
+    """``read(record)`` of ``ofps_bench/metrics/<name>.py``."""
+    return _load(root / "ofps_bench" / "metrics" / f"{name}.py", f"ofps_bench_metric_{name}").read
+
+
+def check_path(key: str, root: Path = ROOT) -> Path:
+    return root / "ofps_bench" / "checks" / f"{key}.py"
+
+
+def check_number(key: str, root: Path = ROOT) -> Callable[..., float]:
+    """``number(cell, seed, served, ref, checked)`` of
+    ``ofps_bench/checks/<key>.py``."""
+    return _load(check_path(key, root), f"ofps_bench_check_{key}").number

@@ -71,3 +71,16 @@ def test_the_reference_alone_loads_no_program():
             "print(sorted({m.split('.')[0] for m in sys.modules}))")
     loaded = set(eval(_fresh(code)))
     assert not loaded & REFERENCE_BANNED
+
+
+@pytest.mark.parametrize("name", ["five_point", "multiview", "libmv"])
+def test_the_frozen_estimator_copies_fall_under_the_reference_rule(name):
+    """The copies of the port's five-point solver, multiview and libmv are
+    among the sources the reference's rule reads, say which file they copy,
+    and import only the reference."""
+    path = BENCH / "reference" / f"{name}.py"
+    assert path in _sources("reference")
+    assert path.read_text().startswith("# Frozen copy of the port's plain ``ofps_torch/")
+    mods = set(_top_level_imports(path))
+    assert not mods & REFERENCE_BANNED
+    assert "ofps_bench" in mods

@@ -74,7 +74,7 @@ def test_readers_find_nothing_without_a_trace():
     # No trace, and a trace without a marked step (no harness range in it).
     unmarked = trace.parse_events([e for e in EVENTS if e["name"] != "ofps_bench.step"])
     for name in ("device_idle_pct", "consumers_device_ms", "flow_device_ms",
-                 "flow_roofline", "decode_wait_ms", "decode_wait_ms.b32", "upload_ms",
+                 "flow_roofline", "decode_wait_ms.b32", "upload_ms",
                  "step_enqueue_ms.codec", "step_enqueue_ms.frames"):
         assert spec.metric_reader(name)(_record()) is None
         assert spec.metric_reader(name)(_record(timeline=unmarked, step_s=[0.03])) is None
@@ -85,7 +85,6 @@ def test_perfstats_readers():
     perf = {"decode": [0.001, 0.003], "upload": [0.002], "step": [0.004, 0.006],
             "enqueue": [0.01]}
     rec = _record(perf=perf)
-    assert spec.metric_reader("decode_wait_ms")(rec) == pytest.approx(2.0)
     assert spec.metric_reader("decode_wait_ms.b32")(rec) == pytest.approx(2.0)
     assert spec.metric_reader("upload_ms")(rec) == pytest.approx(2.0)
     assert spec.metric_reader("step_enqueue_ms.codec")(rec) == pytest.approx(5.0)

@@ -73,3 +73,43 @@ def test_frames_step(root):
             assert torch.equal(a, b)
         assert torch.equal(got.detected, out.detection.detected)
     assert float(np.abs(grid.numpy()).max()) > 0  # the pan moved the grid
+
+
+def _leaves(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [leaf for v in x for leaf in _leaves(v)]
+
+
+def test_codec_step_all_four(root):
+    """The four estimators found by name, three steps with libmv's carried
+    state on both sides; the port draws from its own generator, so the
+    reference's draws are the served step's calls in its order."""
+    name = tiny.add_cell(root, "codec_all4_tiny.b2", "codec_tiny", "codec_tiny",
+                         estimators=tiny.ALL4)
+    cell = spec.load_cell(name, root)
+    cfg = cell.config
+    bank = inputs.codec_bank(SEED, 2, cfg, cell.traffic)
+    ref = Reference(cfg, "cpu")
+    assert [e.name for e in ref.ests] == ["almeida", "homography", "multiview", "libmv"]
+    pipe = _port(cfg)
+    state = pipe.init_state(2, 1, 1)
+    gen_ref = torch.Generator().manual_seed(SEED)
+    gen_port = torch.Generator().manual_seed(SEED)
+    states = None
+    for t in range(3):
+        rows = check._rows(bank, t, cfg["capacity"], "cpu")
+        got = ref.codec_step(rows, ref.draws(gen_ref, 2, cfg["capacity"], dense=False), states)
+        states = got.states
+        state, out = pipe.step_from_flow(
+            state, SparseFlow(rows[..., 0:2], rows[..., 2:4], rows[..., 4]), gen_port)
+        for a, b in zip(got.delta, out.delta_rot, strict=True):
+            assert torch.equal(a, b)
+        for a, b in zip(got.tr, out.delta_tr, strict=True):
+            assert torch.equal(a, b)
+        for a, b in zip(_leaves(states), _leaves(state.est), strict=True):
+            assert torch.equal(a, b)
+        assert torch.equal(got.detected, out.detection.detected)
+    libmv = states[3]
+    assert float(libmv.has.min()) == 1.0  # the chain started and carried on
+    assert float(torch.linalg.vector_norm(got.tr[3], dim=-1).min()) > 0

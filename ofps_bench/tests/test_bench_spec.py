@@ -55,7 +55,9 @@ def test_new_files_are_found_without_a_code_edit(tmp_path):
 @pytest.mark.parametrize("tracing", [False, True])
 def test_result_line_keys(tmp_path, tracing):
     cell = spec.load_cell("codec_tiny.b2", tiny.make_root(tmp_path))
-    out = run.run_cell(cell, 2**31 + 6, 1.0, tracing, "cpu", 0.0)
+    # A traced window long enough that the profiler, started 30% into it,
+    # sees its steps on a slow CPU too (a codec tiny step takes ~0.3 s).
+    out = run.run_cell(cell, 2**31 + 6, 3.0 if tracing else 1.0, tracing, "cpu", 0.0)
     device = {"platform": "gpu", "kind": "test", "count": 1, "memory_peak_bytes": 0}
     line = json.loads(json.dumps(run.result_line(out, device, tracing)))
     want = CONTRACT + (["breakdown"] if tracing else []) + ["checks"]
@@ -63,7 +65,9 @@ def test_result_line_keys(tmp_path, tracing):
     names = {m["name"] for m in (cell.per_layer if tracing else cell.end_to_end)}
     assert set(line["metrics"]) <= names
     if not tracing:
-        assert set(line["metrics"]) == {"stream_fps", "step_p95_ms", "setup_s"}
+        # Every end-to-end metric the cell reports (the codec cells have no
+        # step_p95_ms end to end).
+        assert set(line["metrics"]) == names >= {"stream_fps", "setup_s"}
     else:
         assert {"busy_s", "window_s"} <= set(line["device"])
     assert all(set(c) == {"value", "limit"} for c in line["checks"].values())

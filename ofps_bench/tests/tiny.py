@@ -50,3 +50,23 @@ def make_root(tmp: Path) -> Path:
         m["workloads"] = [w["name"] for w in bench["workloads"] if w["name"].split("_")[0] in kinds]
     (tmp / "BENCHMARK.json").write_text(json.dumps(bench))
     return tmp
+
+
+def add_cell(root: Path, cell: str, base: str, traffic: str, **changes) -> str:
+    """A configuration ``base`` (a tiny one) with ``changes``, and its cell
+    on ``traffic``, added to ``root`` as files and entries; returns the
+    cell's name."""
+    name = cell.split(".")[0]
+    cfg = json.loads((root / f"ofps_bench/configs/{base}.json").read_text())
+    cfg.update(name=name, **changes)
+    (root / f"ofps_bench/configs/{name}.json").write_text(json.dumps(cfg))
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    entry = next(c for c in bench["configs"] if c["name"] == base)
+    bench["configs"].append(dict(entry, name=name, file=f"ofps_bench/configs/{name}.json"))
+    bench["workloads"].append({"name": cell, "config": name, "traffic": traffic, "chips": 1,
+                               "why": "tiny"})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    return cell
+
+
+ALL4 = [{"name": n, "properties": {}} for n in ("almeida", "homography", "multiview", "libmv")]
