@@ -53,7 +53,8 @@ class BatchResult:
     active: Optional[np.ndarray] = None
     estimator_names: List[str] = dataclasses.field(default_factory=list)
     # Per-frame history, recorded when GT evaluation is requested:
-    # delta_rot[e][t]: (B, 4); rot_hist[e][t]: (B, 4).
+    # delta_rot[e][t]: (B, 4); rot_hist[e][t]: (B, 4); delta_tr[e][t]:
+    # (B, 3), the step's translation.
     delta_rot: Optional[List[List[np.ndarray]]] = None
     rot_hist: Optional[List[List[np.ndarray]]] = None
     # (stream_idx, estimator_name) -> (avg_err, avg_r, avg_p, avg_y) rad.
@@ -64,6 +65,7 @@ class BatchResult:
     # How the consumers ran: CUDA-graph replays and eager calls.
     graph_replays: int = 0
     eager_runs: int = 0
+    delta_tr: Optional[List[List[np.ndarray]]] = None
 
     def throughput_fps(self) -> float:
         """Stream-frames a second over the loop's time: the totals of the
@@ -224,6 +226,7 @@ def run_batch(
     want_gt = ground_truths is not None and any(ground_truths)
     dr_hist: List[List[np.ndarray]] = [[] for _ in ests]
     rot_hist: List[List[np.ndarray]] = [[] for _ in ests]
+    tr_hist: List[List[np.ndarray]] = [[] for _ in ests]
     active_hist: List[List[bool]] = []
     vectors: List[np.ndarray] = []
     frames = 0
@@ -233,8 +236,9 @@ def run_batch(
         got = fetch.get()
         if want_gt:
             for e in range(len(ests)):
-                dr_hist[e].append(got[2 * e])
-                rot_hist[e].append(got[2 * e + 1])
+                dr_hist[e].append(got[3 * e])
+                rot_hist[e].append(got[3 * e + 1])
+                tr_hist[e].append(got[3 * e + 2])
         if det is not None:
             detections.append(got[-1])
 
@@ -288,7 +292,7 @@ def run_batch(
                     wanted = []
                     if want_gt:
                         for e in range(len(ests)):
-                            wanted += [out.delta_rot[e], out.rot[e]]
+                            wanted += [out.delta_rot[e], out.rot[e], out.delta_tr[e]]
                     if det is not None:
                         wanted.append(out.detection.detected)
                     pending.append(_Fetch(wanted, dev))
@@ -339,4 +343,5 @@ def run_batch(
         vectors=np.stack(vectors) if vectors else None,
         graph_replays=pipe.graph_replays,
         eager_runs=pipe.eager_runs,
+        delta_tr=tr_hist if want_gt else None,
     )

@@ -29,11 +29,18 @@ Each step writes spans into the pipeline's recorder (``perf``, a
 with its CUDA-event time), ``draws``, ``consumers`` and, on CUDA,
 ``consumers.copy_in``, ``consumers.launch`` (the replay, with its
 CUDA-event time), ``consumers.clone`` and, once per graph,
-``consumers.capture`` with the captured graph's node count.
+``consumers.capture`` with the captured graph's node count.  Inside the
+consumers each estimator's section is a span ``consumers.est.<name>`` and
+the detector's ``consumers.det.<name>``: eagerly with host times only; in
+a CUDA graph their start and end are event-record nodes of the graph, so
+that every replay gives each section's device time (children of
+``consumers.launch``), and the capture counts each section's nodes
+(``consumers.capture``'s ``nodes_by_section``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import Any, List, NamedTuple, Optional, Sequence, Tuple, Union
@@ -263,13 +270,15 @@ class StreamPipeline:
     # -- consumers -----------------------------------------------------------
 
     def _consume(self, est_states, rot, pos, field: Union[torch.Tensor, SparseFlow],
-                 draws, props=None):
+                 draws, props=None, sections: Optional["_Sections"] = None):
         """Estimators + detector: a fixed sequence of device operations
         (random inputs come in as ``draws``, one per estimator, None for an
         estimator without them).  ``field`` is the all-valid (B, gh, gw, 2)
         grid (``dense=True`` estimators, the detector's static-lattice
         ``detect_field``) or a masked (B, N) :class:`SparseFlow` (masked
-        RANSAC, the detector's sparse ``detect``)."""
+        RANSAC, the detector's sparse ``detect``).  Each estimator and the
+        detector run inside a span of their own; ``sections`` times them
+        inside a graph being captured."""
         dense = isinstance(field, torch.Tensor)
         sparse = field_to_sparse(field) if dense else field
         rots, poss, dr, dt, est_out = [], [], [], [], []
@@ -278,9 +287,10 @@ class StreamPipeline:
             extra = {} if draws[i] is None else {"fit_idx": draws[i]}
             if self.plain:
                 extra["plain"] = True
-            r, t, st = est.estimate(
-                est_states[i], sparse, self.camera, props=eprops, dense=dense, **extra
-            )
+            with self._section("est", est.name, sections):
+                r, t, st = est.estimate(
+                    est_states[i], sparse, self.camera, props=eprops, dense=dense, **extra
+                )
             poss.append(pos[i] + quat.rotate_vec(rot[i], t))
             rots.append(quat.mul(r, rot[i]))
             dr.append(r)
@@ -289,11 +299,25 @@ class StreamPipeline:
         detection = None
         if self.detector is not None:
             dprops = props["detector"] if props is not None else None
-            if dense and self.detector.detect_field is not None:
-                detection = self.detector.detect_field(field, props=dprops)
-            else:
-                detection = self.detector.detect(sparse, props=dprops)
+            with self._section("det", self.detector.name, sections):
+                if dense and self.detector.detect_field is not None:
+                    detection = self.detector.detect_field(field, props=dprops)
+                else:
+                    detection = self.detector.detect(sparse, props=dprops)
         return tuple(rots), tuple(poss), tuple(dr), tuple(dt), tuple(est_out), detection
+
+    @contextlib.contextmanager
+    def _section(self, kind: str, name: str, sections: Optional["_Sections"]):
+        """The span ``consumers.<kind>.<name>`` of an estimator (``est``) or
+        the detector (``det``); inside a capture also a timed section of
+        the graph."""
+        span = f"consumers.{kind}.{name}"
+        with self.perf.span(span):
+            if sections is None or not torch.cuda.is_current_stream_capturing():
+                yield
+            else:
+                with sections.timed(span, name):
+                    yield
 
     def _run_consumers(self, state: StreamState, field, draws, props):
         """:meth:`_consume`, replayed as a CUDA graph on CUDA.
@@ -322,13 +346,16 @@ class StreamPipeline:
                 tuple((tuple(x.shape), x.dtype) for x in inputs), names)
         if gkey not in self._graphs:
 
+            sections = _Sections()
+
             def fn(*xs):
                 f, rot, pos, d, est, vals = _rebuild(tree, iter(xs))
-                return self._consume(est, rot, pos, f, d, _props_from(names, vals))
+                return self._consume(est, rot, pos, f, d, _props_from(names, vals), sections)
 
             with self.perf.span("consumers.capture") as sp:
-                self._graphs[gkey] = _CapturedCall(fn, inputs)
+                self._graphs[gkey] = _CapturedCall(fn, inputs, sections)
                 sp.nodes = self._graphs[gkey].nodes
+                sp.nodes_by_section = dict(sections.nodes)
         self.graph_replays += 1
         return self._graphs[gkey](inputs, self.perf)
 
@@ -591,13 +618,59 @@ def _cu_graph_get_nodes():
     return fn
 
 
-def _graph_nodes(graph: "torch.cuda.CUDAGraph") -> int:
-    """The node count of ``graph``'s kept ``cudaGraph_t``."""
+def _graph_nodes(graph) -> int:
+    """The node count of the ``cudaGraph_t`` handle ``graph``."""
     n = ctypes.c_size_t(0)
-    rc = _cu_graph_get_nodes()(graph.raw_cuda_graph(), None, ctypes.byref(n))
+    rc = _cu_graph_get_nodes()(graph, None, ctypes.byref(n))
     if rc != 0:
         raise RuntimeError(f"cuGraphGetNodes failed with CUresult {rc}")
     return n.value
+
+
+@functools.lru_cache(maxsize=1)
+def _cu_stream_get_capture_info():
+    """CUDA's ``cuStreamGetCaptureInfo_v2`` from ``libcuda.so.1``."""
+    fn = ctypes.CDLL("libcuda.so.1").cuStreamGetCaptureInfo_v2
+    fn.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
+                   ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _capturing_nodes(stream: "torch.cuda.Stream") -> int:
+    """The node count of the graph that ``stream`` is capturing, so far."""
+    status, graph = ctypes.c_int(0), ctypes.c_void_p()
+    rc = _cu_stream_get_capture_info()(stream.cuda_stream, ctypes.byref(status), None,
+                                       ctypes.byref(graph), None, None)
+    if rc != 0 or status.value != 1:  # CU_STREAM_CAPTURE_STATUS_ACTIVE
+        raise RuntimeError(f"cuStreamGetCaptureInfo failed with CUresult {rc}, "
+                           f"capture status {status.value}")
+    return _graph_nodes(graph)
+
+
+class _Sections:
+    """The timed sections of a graph under capture: for each, its span's
+    name and a pair of timing events recorded into the graph as
+    event-record nodes (the events are the graph's: each replay records
+    them again), and by the consumer's name the nodes of the section's own
+    work, counted on the graph in progress."""
+
+    def __init__(self):
+        self.events: List[Tuple[str, torch.cuda.Event, torch.cuda.Event]] = []
+        self.nodes: dict = {}  # name -> nodes, summed over sections of one name
+
+    @contextlib.contextmanager
+    def timed(self, span: str, name: str):
+        stream = torch.cuda.current_stream()
+        start = torch.cuda.Event(enable_timing=True, external=True)
+        end = torch.cuda.Event(enable_timing=True, external=True)
+        start.record(stream)
+        n0 = _capturing_nodes(stream)
+        yield
+        n1 = _capturing_nodes(stream)
+        end.record(stream)
+        self.events.append((span, start, end))
+        self.nodes[name] = self.nodes.get(name, 0) + n1 - n0
 
 
 class _CapturedCall:
@@ -605,9 +678,13 @@ class _CapturedCall:
     a call copies its inputs in, replays, and returns clones of the outputs
     (the next replay overwrites the static ones), each of the three a span
     of the recorder it is given.  ``nodes``: the captured graph's node
-    count, read before it is instantiated."""
+    count, read before it is instantiated.  ``sections``: what ``fn``
+    timed while it was captured; each replay gives its sections' spans
+    under the replay's, settled before the next replay."""
 
-    def __init__(self, fn, inputs):
+    def __init__(self, fn, inputs, sections: Optional[_Sections] = None):
+        self.sections = sections.events if sections is not None else []
+        self._replayed: List = []  # the last replay's section spans
         # Capture and replay with the inputs' card current, so that the
         # side stream, the capture stream and every launch in ``fn`` belong
         # to that card.  The capture runs on the side stream: the default
@@ -624,17 +701,19 @@ class _CapturedCall:
             self.graph = torch.cuda.CUDAGraph(keep_graph=True)
             with torch.cuda.graph(self.graph, stream=side):
                 self.outputs = fn(*self.inputs)
-            self.nodes = _graph_nodes(self.graph)
+            self.nodes = _graph_nodes(self.graph.raw_cuda_graph())
             self.graph.instantiate()
 
     def __call__(self, inputs, perf: PerfStats):
         with torch.cuda.device(self.device):
+            perf.settle(self._replayed)
             sp = perf.open("consumers.copy_in")
             for static, x in zip(self.inputs, inputs):
                 static.copy_(x)
-            sp = perf.open("consumers.launch", t=perf.close(sp), device=self.device)
+            launch = perf.open("consumers.launch", t=perf.close(sp), device=self.device)
             self.graph.replay()
-            sp = perf.open("consumers.clone", t=perf.close(sp))
+            sp = perf.open("consumers.clone", t=perf.close(launch))
             out = _clone(self.outputs)
             perf.close(sp)
+            self._replayed = perf.replayed(launch, self.sections)
             return out

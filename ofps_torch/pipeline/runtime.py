@@ -119,12 +119,13 @@ class Span:
     one); ``start``, ``end``: ``time.perf_counter`` seconds; ``device_ms``:
     the CUDA-event time of the device work enqueued inside it, where one
     was asked for and has been read (:meth:`PerfStats.resolve`);
-    ``nodes``: a graph capture's node count.  As a context manager (from
+    ``nodes``: a graph capture's node count, ``nodes_by_section`` its
+    count for each consumer's section.  As a context manager (from
     :meth:`PerfStats.span`) it closes on leaving the block.
     """
 
     __slots__ = ("name", "step", "parent", "row", "start", "end", "device_ms", "nodes",
-                 "_perf", "_events", "_range")
+                 "nodes_by_section", "_perf", "_events", "_range")
 
     def __init__(self, name: str, step: int, parent: Optional["Span"], row: Optional[int],
                  start: float, perf: Optional["PerfStats"] = None):
@@ -133,8 +134,11 @@ class Span:
         self.end: Optional[float] = None
         self.device_ms: Optional[float] = None
         self.nodes: Optional[int] = None
+        self.nodes_by_section: Optional[Dict[str, int]] = None
         self._perf = perf
-        self._events = None  # (start event, end event, stream) until resolved
+        # (start event, end event, stream) until resolved; the stream is
+        # None where the events belong to a CUDA graph, not to the pool.
+        self._events = None
         self._range = None  # the profiler's record_function range, while open
 
     @property
@@ -179,6 +183,12 @@ class PerfStats:
     complete (:meth:`resolve`, run as each root opens), so recording never
     waits for the device.  While the profiler runs, each span is also a
     ``record_function`` range named ``ofps_torch.<name>``.
+
+    A CUDA graph's replay brings its own timing events, recorded by the
+    graph's event-record nodes (:meth:`replayed`): they are read in the
+    same way, and, since the next replay records them again, settled
+    before it (:meth:`settle`); a span whose end event has not completed
+    by then loses its reading and counts in ``missed``.
     """
 
     def __init__(self, max_steps: int = 65536):
@@ -191,6 +201,7 @@ class PerfStats:
         self._pending: "collections.deque[Span]" = collections.deque()
         self._pool: Dict[int, list] = {}  # device index -> free event pairs
         self._streams: Dict[tuple, "torch.cuda.Stream"] = {}  # (index, raw handle) -> stream
+        self.missed = 0  # graph spans left unread before their graph replayed again
 
     @property
     def depth(self) -> int:
@@ -279,6 +290,38 @@ class PerfStats:
         spans.append(sp)
         return spans
 
+    def replayed(self, parent: Span, sections) -> List[Span]:
+        """Spans of a CUDA graph's timed sections, children of ``parent``
+        (the closed span of the replay, whose host interval they take):
+        ``sections`` holds (name, start event, end event) that each replay
+        of the graph records.  Their device times are read as the pool's
+        are; :meth:`settle` them before the graph replays again."""
+        out = []
+        for name, start, end in sections:
+            sp = Span(name, parent.step, parent, parent.row, parent.start, self)
+            sp.end = parent.end
+            sp._events = (start, end, None)
+            self._keep(sp)
+            self._pending.append(sp)
+            out.append(sp)
+        return out
+
+    def settle(self, spans: Iterable[Span]) -> None:
+        """Read the device times of a graph's last replayed ``spans`` before
+        the graph replays again and records over their events, without
+        waiting: a span whose end event has not completed gets no reading
+        and counts in ``missed``."""
+        for sp in spans:
+            if sp._events is None:
+                continue
+            start, end, _ = sp._events
+            if end.query():
+                sp.device_ms = start.elapsed_time(end)
+            else:
+                self.missed += 1
+            sp._events = None
+            self._pending.remove(sp)
+
     def resolve(self, wait: bool = False) -> None:
         """Read the device time of every closed span whose end event has
         completed, in the order they closed, up to the first that has not;
@@ -292,7 +335,8 @@ class PerfStats:
                 return
             sp.device_ms = start.elapsed_time(end)
             sp._events = None
-            self._pool[stream.device_index].append((start, end))
+            if stream is not None:
+                self._pool[stream.device_index].append((start, end))
             self._pending.popleft()
 
     def per_step(self, name: str, steps: Optional[Iterable[int]] = None,

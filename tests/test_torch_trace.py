@@ -9,6 +9,8 @@ what writes into it, on the CPU at tiny sizes.
   a ``step`` span a step holds the upload's and the pipeline's spans, and
   ``decode.work`` is the slowest feed's parse.
 * ``BatchResult.throughput_fps``: stream-frames over the four stages' totals.
+* A graph replay's section spans (``PerfStats.replayed``): read once their
+  end event completes, or missed where it has not by the next replay.
 * The step bound (a smaller one given to the constructor), ``record_function``
   entered only under the profiler, ``last_perf`` returning a sharded
   pipeline's recorder (its rows write into it), and the benchmark's span
@@ -36,6 +38,10 @@ from ofps_torch.pipeline import runtime
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 H, W, B, CAP = 96, 160, 2, 256
+# The spans of ``_pipe``'s consumers, children of ``consumers``: one a
+# section, host times only off the card.
+CONSUMER_SECTIONS = [("consumers.est.almeida", "consumers"),
+                     ("consumers.det.block_motion", "consumers")]
 
 
 def _pipe(**kw):
@@ -78,15 +84,17 @@ def test_step_spans_of_both_paths():
     assert list(perf.spans) == [0, 1]
     for step, spans in perf.spans.items():
         assert _tree(spans) == [("step", None), ("flow", "step"), ("draws", "step"),
-                                ("consumers", "step")]
+                                ("consumers", "step"), *CONSUMER_SECTIONS]
         assert all(sp.step == step and sp.row is None for sp in spans)
         assert all(sp.device_ms is None for sp in spans)  # no card: host times only
         _check_tree(spans)
     state = pipe.init_state(B, 1, 1)
     pipe.step_from_flow(state, _sparse(B), gen)
-    assert _tree(perf.spans[2]) == [("step", None), ("draws", "step"), ("consumers", "step")]
+    assert _tree(perf.spans[2]) == [("step", None), ("draws", "step"), ("consumers", "step"),
+                                     *CONSUMER_SECTIONS]
     _check_tree(perf.spans[2])
-    assert perf.span_names() == ["step", "flow", "draws", "consumers"]
+    assert perf.span_names() == ["step", "flow", "draws", "consumers",
+                                 "consumers.est.almeida", "consumers.det.block_motion"]
     assert perf.stages == {}
 
 
@@ -118,7 +126,7 @@ def test_run_batch_stages_and_spans(tmp_path):
         assert sorted(_tree(spans)) == sorted([
             ("step", None), ("decode.work", None), ("upload.wait", "step"),
             ("upload.pack", "step"), ("pipeline.step", "step"), ("draws", "pipeline.step"),
-            ("consumers", "pipeline.step")])
+            ("consumers", "pipeline.step"), *CONSUMER_SECTIONS])
         assert all(sp.step == step for sp in spans)
         _check_tree([sp for sp in spans if sp.name != "decode.work"])
         work = next(sp for sp in spans if sp.name == "decode.work")
@@ -183,13 +191,15 @@ def test_record_function_only_under_the_profiler(monkeypatch, tmp_path):
     assert entered == []
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         pipe.step_from_flow(state, _sparse(B, 1), gen)
-    assert entered == ["ofps_torch.step", "ofps_torch.draws", "ofps_torch.consumers"]
+    assert entered == ["ofps_torch.step", "ofps_torch.draws", "ofps_torch.consumers",
+                       "ofps_torch.consumers.est.almeida",
+                       "ofps_torch.consumers.det.block_motion"]
     prof.export_chrome_trace(str(tmp_path / "t.json"))
     events = json.loads((tmp_path / "t.json").read_text())["traceEvents"]
     ranges = {e["name"] for e in events if e.get("cat") == "user_annotation"}
     assert {"ofps_torch.step", "ofps_torch.draws", "ofps_torch.consumers"} <= ranges
     pipe.step_from_flow(state, _sparse(B, 2), gen)
-    assert len(entered) == 3
+    assert len(entered) == 5
 
 
 def test_last_perf_is_the_sharded_pipelines():
@@ -208,6 +218,49 @@ def test_last_perf_is_the_sharded_pipelines():
         ("consumers", 0), ("consumers", 1)]
     assert all(sp.parent.name == "step" for sp in spans if sp.name == "pipeline.step")
     _check_tree(spans)
+
+
+class _GraphEvent:
+    """A timing event that a replayed graph records: complete or not, and
+    its time from the section's start event."""
+
+    def __init__(self, ms=0.0, done=True):
+        self.ms, self.done = ms, done
+
+    def query(self):
+        return self.done
+
+    def synchronize(self):
+        self.done = True
+
+    def elapsed_time(self, end):
+        return end.ms
+
+
+def test_replayed_sections_are_read_or_missed():
+    """A replay's section spans are children of its span, read once their
+    end event completes (at the next root, without waiting) or settled
+    before the graph replays again, where an incomplete one is missed; the
+    graph's events never go into the recorder's pool."""
+    perf = runtime.PerfStats()
+    sections = [("consumers.est.a", _GraphEvent(), _GraphEvent(2.0)),
+                ("consumers.det.b", _GraphEvent(), _GraphEvent(0.5, done=False))]
+    last = []
+    for t in range(3):
+        with perf.span("step"):
+            perf.settle(last)
+            launch = perf.open("consumers.launch")
+            perf.close(launch)
+            last = perf.replayed(launch, sections)
+            assert [(sp.name, sp.parent) for sp in last] == [
+                ("consumers.est.a", launch), ("consumers.det.b", launch)]
+            assert all(sp.start == launch.start and sp.end == launch.end for sp in last)
+    # Steps 0 and 1: a read at the next root, b missed at the next replay;
+    # a reader waits for the last replay's events.
+    assert perf.missed == 2
+    assert perf.per_step("consumers.est.a", device=True) == {0: 2.0, 1: 2.0, 2: 2.0}
+    assert perf.per_step("consumers.det.b", device=True) == {2: 0.5}
+    assert perf._pool == {} and not perf._pending
 
 
 def _fake_perf():
