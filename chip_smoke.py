@@ -16,7 +16,9 @@ Phases, each printing its own line; any failure exits non-zero:
    median has no launch of its own: it runs in the staging of the next
    level's refine (``median_in``), so its cases are the serving step's four
    median-taking refines, held against the plain median then the plain
-   refine, and timed beside the same refines without it;
+   refine, and timed beside the same refines without it.  Almeida's
+   RANSAC kernels at B=8 and B=32, and multiview's at codec all4's shapes
+   (B=8, masked and dense), the latter bit for bit;
 4. slice: ``StreamPipeline`` (almeida + homography + block_motion, the
    serving configuration of ``bench.py``) at 1080p, B=4, 8 frames of a
    textured scene moving 3 px per frame with a patch moving 12 px per
@@ -726,6 +728,80 @@ def almeida_cases(torch, device):
     return cases
 
 
+# Multiview's RANSAC has no TPU kernel either (XLA); its hand kernels stand
+# in for the plain robust_fit + five-point + eight-point refits.  At codec
+# all4's shapes (B=8, 218 hypotheses) they are the plain version on the
+# card bit for bit: the refit E, the LO model, the inliers, their count and
+# the winner, in every stream.
+REPLACES["multiview_ransac"] = (
+    "csrc/multiview_ransac.cu",
+    "none: ofps_tpu/estimators/multiview.py:116 robust_fit + five_point_essential (XLA)")
+
+
+def multiview_launches():
+    """Launches of one multiview estimate on the kernels: the normalized
+    coordinates' one and those of ``kernels/multiview.ransac``."""
+    from ofps_torch.kernels import multiview as kmv
+
+    return 1 + kmv.LAUNCHES
+
+
+def multiview_cost(batch: int, h: int, n: int, s: int, p: int, f: int):
+    """(bytes, ops) of one multiview_ransac call: per stream the draws (5
+    int64 indices and 5 points a hypothesis), the eval subset and all
+    points read once, the winner's errors and inliers written; float32
+    operations ~60,000 a five-point chart solve (two a hypothesis), 37 a
+    Sampson test (prescore twice, finalists, the winner over all points) and
+    ~60 a point of each of the three eight-point refits' PyTorch work, a
+    transcendental counted as one."""
+    nbytes = batch * (5 * 24 * h + 28 * s + 20 * n + 8 * n)
+    ops = batch * (2 * 60000 * h + 37 * (2 * 28 * h * p + f * s + n) + 3 * 60 * n)
+    return nbytes, ops
+
+
+def multiview_cases(torch, device):
+    """:class:`Case` s of ``kernels/multiview.ransac`` at codec all4's
+    shapes, B=8 (the shapes whose card arithmetic the kernels copy): the
+    masked codec rows (CODEC_CAPACITY points: the lattice's with a third
+    invalid, then invalid rows) and the dense 84x150 lattice, on
+    :func:`rotation_grid`'s fixture, the threshold a 0-d tensor as the
+    consumers' graph takes it."""
+    from ofps_torch.core.camera import StandardCamera
+    from ofps_torch.core.motion import SparseFlow, field_to_sparse
+    from ofps_torch.estimators import multiview as mv
+    from ofps_torch.estimators.base import camera_intrinsics, create_estimator
+    from ofps_torch.kernels import multiview as kmv
+
+    cam = StandardCamera.create(W / H, 60.0)
+    est = create_estimator("multiview")
+    params, h = est.params, mv.hypothesis_count(est.params)
+    k, kinv = camera_intrinsics(cam, str(device))
+    thr = params.max_error / ((k[0, 0] + k[1, 1]) * 0.5)
+    b = ALL4_BATCH
+    rgrid, _, mask = rotation_grid(torch, b, SEED + 40)
+    lattice = field_to_sparse(rgrid)
+    pad = CODEC_CAPACITY - mask.shape[-1]
+    cases = []
+    for masked in (True, False):
+        flow = lattice if not masked else SparseFlow(*(
+            torch.cat([x, x.new_zeros(x.shape[:1] + (pad,) + x.shape[2:])], dim=1)
+            for x in (lattice.pos, lattice.motion, mask)))
+        flow = SparseFlow(*(x.to(device) for x in flow))
+        n = flow.mask.shape[-1]
+        x1 = mv.normalized_coords(kinv, flow.pos)
+        x2 = mv.normalized_coords(kinv, flow.pos + flow.motion)
+        gen = torch.Generator(device=device).manual_seed(SEED + 41)
+        idx = est.draw(gen, (b,), n, device, dense=not masked)
+        args = (x1, x2, flow.mask, thr, params, h, idx, not masked)
+        s = min(params.eval_cap, n)
+        case = Case(lambda a=args: kmv.ransac(*a), lambda a=args: kmv.ransac_plain(*a),
+                    ("multiview", None), (b, n),
+                    multiview_cost(b, h, n, s, params.prescore_cap, params.finalists))
+        case.note = f"B={b} {'masked' if masked else 'dense'}"
+        cases.append(case)
+    return cases
+
+
 def replay_kernels(torch, pipe, state, field, draws, props=None, part="almeida_"):
     """The kernels whose names hold ``part`` in one replay of ``pipe``'s
     captured consumers' graph, from ``torch.profiler`` (CUPTI reports a
@@ -766,6 +842,15 @@ def compare(torch, got, ref, kind):
     """(max_abs_err, mismatch_share, ok) of kernel output vs plain; for
     almeida (rotation gap in rad, share of streams with another winner or
     count, ok)."""
+    if kind[0] == "multiview":
+        (ge, gf), (re, rf) = got, ref
+        pairs = [(ge, re), *zip(gf, rf, strict=True)]
+        off = torch.zeros(ge.shape[0], dtype=torch.bool, device=ge.device)
+        for g, r in pairs:
+            same = (g == r) | (torch.isnan(g) & torch.isnan(r)) if g.is_floating_point() else g == r
+            off |= ~same.reshape(ge.shape[0], -1).all(-1)
+        gap = (ge - re).abs().max().item()
+        return gap, off.float().mean().item(), not bool(off.any())
     if kind[0] == "almeida":
         from ofps_torch.core import quat
 
@@ -814,9 +899,11 @@ def make_pipeline(device, plain: bool, estimators=ESTIMATORS, fov_y: float = 60.
 def launch_counters(kfr, kfs, kwarp, kalm):
     """Per kernel: the (wrapper, attribute) launch counts that it sums.
     The 3x3 median is counted where a refine launch takes it; almeida's
-    three kernels are launched from the host where a consumers' graph is
-    captured (twice a capture: its warm-up and the captured call) or run
-    eagerly, and replay inside the graph."""
+    and multiview's kernels are launched from the host where a consumers'
+    graph is captured (twice a capture: its warm-up and the captured call)
+    or run eagerly, and replay inside the graph."""
+    from ofps_torch.kernels import multiview as kmv
+
     return {
         "flow_refine": [(kfr.flow_refine, "launches")],
         "flow_refine_2d": [(kfs.flow_refine_small, "launches")],
@@ -826,6 +913,7 @@ def launch_counters(kfr, kfs, kwarp, kalm):
                          (kfs.flow_refine_small, "median_in_launches")],
         "warp_bilinear": [(kwarp.warp_bilinear, "launches")],
         "almeida_ransac": [(kalm.ransac, "launches")],
+        "multiview_ransac": [(kmv.ransac, "launches")],
     }
 
 
@@ -923,6 +1011,12 @@ def run_all4(torch, device, counters):
     launches = {k: counts[k] for k in ("flow_refine", "flow_refine_small", "guard_select",
                                        "median3x3_uv")}
     check_per_step("all4", launches, {"flow_refine": 4, "flow_refine_small": 3, "median3x3_uv": 4})
+    # Multiview's kernels: launched from the host twice a capture, and all
+    # of one call's in every replay of the consumers' graph.
+    mv_host = counts["multiview_ransac"]
+    if mv_host != 2 * multiview_launches() * len(pipe._graphs):
+        fail(f"all4: {mv_host} host launches of multiview's kernels for "
+             f"{len(pipe._graphs)} capture(s)")
     steps = frames.shape[0]
     finite = all(bool(torch.isfinite(x).all()) for o in outs
                  for x in (*o.rot, *o.pos, *o.delta_rot, *o.delta_tr))
@@ -981,6 +1075,13 @@ def run_all4(torch, device, counters):
           f"(allowed {EPI_STEP_OFF})")
     if g_err > GRAPH_TOL:
         fail("all4: the consumers' graph and the eager calls disagree")
+    mv_replay = replay_kernels(torch, pipe, g_state, grid, tuple(
+        e.draw(gen, (batch,), n, device) for e in pipe.estimators), part="::mv_")
+    phase("all4", f"multiview_ransac: {mv_host} host launches for {len(pipe._graphs)} "
+          f"capture(s); {mv_replay} multiview kernels in a replay (torch.profiler)")
+    if mv_replay not in (None, multiview_launches()):
+        fail("all4: multiview's kernels did not run once a replay, in the graph")
+    launches["multiview_ransac"] = mv_replay if mv_replay is not None else mv_host
     if not (g_share <= 1e-2 and all(n <= EPI_STEP_OFF[k] for k, n in off.items())):
         fail("all4: kernel path and plain path disagree")
     return launches
@@ -2444,6 +2545,7 @@ def main() -> None:
     batch = 4
     cases = kernel_cases(torch, device, batch)
     cases["almeida_ransac"] = almeida_cases(torch, device)
+    cases["multiview_ransac"] = multiview_cases(torch, device)
     results = {}
     for name, items in cases.items():
         worst, share, ok, errs = 0.0, 0.0, True, []
@@ -2782,7 +2884,8 @@ def main() -> None:
     if not all(math.isfinite(v) for v in [
             *step_ms.values(), *cv_ms.values(), *consumers_ms.values()]):
         fail("non-finite timing")
-    main_path = {"flow_refine_2d": "refine_2d", "warp_bilinear": "cv_rlof"}
+    main_path = {"flow_refine_2d": "refine_2d", "warp_bilinear": "cv_rlof",
+                 "multiview_ransac": "all4"}
     print(json.dumps({"kernels": [
         {
             "name": name,

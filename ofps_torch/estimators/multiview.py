@@ -22,18 +22,15 @@ from ofps_torch.core import quat
 from ofps_torch.core.motion import SparseFlow
 from ofps_torch.estimators.base import EstimatorInstance, camera_intrinsics, register
 from ofps_torch.estimators.convention import remap_solver_rotation
+from ofps_torch.kernels import multiview as kmv
 from ofps_torch.ops.epipolar import (
-    eight_point_fundamental,
     homogeneous,
-    project_to_essential,
     recover_pose_from_essential,
     refine_pose_sampson,
     rotation_only_fallback,
-    sampson_error,
     transform_points,
 )
-from ofps_torch.ops.five_point import five_point_essential
-from ofps_torch.ops.robust import draw, ransac_budget, robust_fit
+from ofps_torch.ops.robust import draw, ransac_budget
 
 
 class MultiviewParams(NamedTuple):
@@ -73,49 +70,33 @@ def normalized_coords(kinv: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return h[..., :2] / h[..., 2:3]
 
 
-def _eight_point_essential(x1, x2, w):
-    return project_to_essential(eight_point_fundamental(x1, x2, w))
-
-
-def _minimal_eight(x1s, x2s, ws):
-    e = _eight_point_essential(x1s, x2s, ws)
-    return e[..., None, :, :], torch.ones(e.shape[:-2] + (1,), dtype=torch.bool, device=e.device)
-
-
 def estimate_essential_rotation(
     generator: Optional[torch.Generator], params: MultiviewParams, flow: SparseFlow,
     camera, max_error=None, dense: bool = False, fit_idx: Optional[torch.Tensor] = None,
+    plain: bool = False,
 ) -> torch.Tensor:
     """Rotation quaternions (..., 4) of flows (..., N).  ``fit_idx`` (...,
-    H, k): the RANSAC draws (else drawn from ``generator``)."""
+    H, k): the RANSAC draws (else drawn from ``generator``).  The RANSAC
+    and the refit on its inliers are ``kernels/multiview.ransac``: on a
+    CUDA flow the hand kernels unless ``plain`` (or parameters they do not
+    cover: ``use_five_point=False``, ``use_ransac=False``, see
+    ``kernels/multiview.uses_kernels``)."""
     k, kinv = camera_intrinsics(camera, str(flow.pos.device))
     w = flow.mask
-    x1 = normalized_coords(kinv, flow.pos)
-    x2 = normalized_coords(kinv, flow.pos + flow.motion)
+    if kmv.on_kernels(params, flow.pos, plain):
+        x1, x2 = kmv.normalized_coords(kinv, flow.pos, flow.motion)
+    else:
+        x1 = normalized_coords(kinv, flow.pos)
+        x2 = normalized_coords(kinv, flow.pos + flow.motion)
     if max_error is None:
         max_error = params.max_error
     # The pixel threshold over the focal length, as OpenCV does for
     # normalized coordinates (K is in [0, 1] screen units).
     thr = max_error / ((k[0, 0] + k[1, 1]) * 0.5)
-    res = robust_fit(
-        x1, x2, w,
-        minimal_fit=five_point_essential if params.use_five_point else _minimal_eight,
-        sample_size=sample_size(params),
-        error_fn=sampson_error,
-        num_hypotheses=hypothesis_count(params),
-        threshold=thr,
-        use_lmeds=not params.use_ransac,
-        eval_cap=params.eval_cap,
-        adaptive_threshold=params.adaptive_threshold,
-        prescore_cap=params.prescore_cap,
-        finalists=params.finalists,
-        dense=dense,
-        refit_fn=_eight_point_essential,
-        idx=fit_idx,
-        generator=generator,
-    )
-    # Refit on the inliers, then the pose by a cheirality vote over them.
-    e = _eight_point_essential(x1, x2, res.inliers)
+    # The RANSAC, the refit on its inliers, then the pose by a cheirality
+    # vote over them.
+    e, res = kmv.ransac(x1, x2, w, thr, params, hypothesis_count(params), idx=fit_idx,
+                        dense=dense, generator=generator, plain=plain)
     r, t, _ = recover_pose_from_essential(e, x1, x2, res.inliers)
     if params.gn_polish:
         r, t = refine_pose_sampson(r, t, x1, x2, res.inliers, iters=params.gn_iters)
@@ -136,10 +117,11 @@ def make_multiview(**kwargs) -> EstimatorInstance:
     def estimate(state, flow: SparseFlow, camera, generator=None, props=None,
                  dense=False, fit_idx=None, move_magnitude=None, plain=False):
         # ``move_magnitude`` is accepted and unused, as in the reference;
-        # ``plain`` too, with no hand kernel to stand in for.
+        # ``plain`` runs the RANSAC's plain version in place of its kernels.
         rot = estimate_essential_rotation(
             generator, params, flow, camera,
             max_error=(props or {}).get("max_error"), dense=dense, fit_idx=fit_idx,
+            plain=plain,
         )
         ok = (torch.sum(flow.mask, dim=-1) >= 8) & torch.isfinite(rot).all(-1)
         rot = torch.where(ok[..., None], rot, quat.identity(device=rot.device))

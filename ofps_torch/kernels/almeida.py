@@ -191,18 +191,6 @@ def _consts(camera) -> tuple:
     )
 
 
-def _rows(x: torch.Tensor, lead, tail, dtype, name: str, dense=1) -> torch.Tensor:
-    """``x`` (*lead, *tail) (or broadcastable) as a (B, *tail) view whose
-    last ``dense`` axes are packed (the kernels take a batch stride, and for
-    the flow's planes a point stride); a copy only where no such view
-    exists."""
-    if x.dtype != dtype:
-        raise ValueError(f"almeida_ransac: {name} must be {dtype}, not {x.dtype}")
-    x = x.expand(tuple(lead) + tuple(tail)).reshape((-1,) + tuple(tail))
-    packed = all(x.stride(-1 - i) == math.prod(tail[len(tail) - i:]) for i in range(dense))
-    return x if packed else x.contiguous()
-
-
 def ransac(camera, flow, fit_idx: torch.Tensor, eidx: torch.Tensor, w_e: torch.Tensor,
            bound, plain: bool = False):
     """Almeida's RANSAC over (..., N) flows: returns ``(rot (..., 4), best
@@ -229,12 +217,16 @@ def ransac(camera, flow, fit_idx: torch.Tensor, eidx: torch.Tensor, w_e: torch.T
         if t.device != dev:
             raise ValueError(f"almeida_ransac: tensors on {t.device} and {dev}")
     f32 = torch.float32
-    pos = _rows(pos, lead, (n, 2), f32, "pos")
-    motion = _rows(motion, lead, (n, 2), f32, "motion")
-    mask = _rows(mask, lead, (n,), f32, "mask", dense=0)
-    fit_idx = _rows(fit_idx, lead, (h, 3), torch.int64, "fit_idx", dense=2)
-    eidx = _rows(eidx, lead, (s,), torch.int64, "eidx")
-    w_e = _rows(w_e, lead, (s,), f32, "w_e")
+
+    def _rows(x, tail, dtype, name, dense=1):
+        return build.batch_rows("almeida_ransac", x, lead, tail, dtype, name, dense)
+
+    pos = _rows(pos, (n, 2), f32, "pos")
+    motion = _rows(motion, (n, 2), f32, "motion")
+    mask = _rows(mask, (n,), f32, "mask", dense=0)
+    fit_idx = _rows(fit_idx, (h, 3), torch.int64, "fit_idx", dense=2)
+    eidx = _rows(eidx, (s,), torch.int64, "eidx")
+    w_e = _rows(w_e, (s,), f32, "w_e")
     bound_t, bound_value, bound_sb = None, 0.0, 0
     if isinstance(bound, torch.Tensor):
         bound_t = bound.to(dev, f32).reshape(-1)

@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -27,7 +28,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("flow_refine.cu", "flow_refine_small.cu", "warp.cu", "almeida_ransac.cu")
+SOURCES = ("flow_refine.cu", "flow_refine_small.cu", "warp.cu", "almeida_ransac.cu",
+           "multiview_ransac.cu")
 HEADERS = ("level_refine.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -55,6 +57,12 @@ _SIGNATURES = {
     "ofps_warp_bilinear": [_P] * 4 + [_I] * 3 + [_P],
     # &Args (kernels/almeida.py _Args), stream
     "ofps_almeida_ransac": [_P, _P],
+    # &Args (kernels/multiview.py _Args), stream
+    "ofps_multiview_ransac": [_P, _P],
+    # ata, t1, t2, start, e_out, B, stream
+    "ofps_multiview_eight_point": [_P] * 5 + [_I, _P],
+    # &PointArgs (kernels/multiview.py _PointArgs), stage, stream
+    "ofps_multiview_points": [_P, _I, _P],
 }
 
 
@@ -154,6 +162,18 @@ def require_cuda_f32(name: str, *tensors) -> None:
                 f"{name}: expected contiguous float32 tensors on {dev}, got "
                 f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
             )
+
+
+def batch_rows(kernel: str, x: torch.Tensor, lead, tail, dtype, name: str,
+               dense: int = 1) -> torch.Tensor:
+    """``x`` (*lead, *tail) (or broadcastable) as a (B, *tail) view whose
+    last ``dense`` axes are packed (the kernels take a batch stride, and for
+    some arrays a point stride); a copy only where no such view exists."""
+    if x.dtype != dtype:
+        raise ValueError(f"{kernel}: {name} must be {dtype}, not {x.dtype}")
+    x = x.expand(tuple(lead) + tuple(tail)).reshape((-1,) + tuple(tail))
+    packed = all(x.stride(-1 - i) == math.prod(tail[len(tail) - i:]) for i in range(dense))
+    return x if packed else x.contiguous()
 
 
 def stream_ptr(device) -> int:

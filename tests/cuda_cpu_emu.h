@@ -102,6 +102,23 @@ inline float atomicAdd(float* p, float v) {
   *p = old + v;
   return old;
 }
+inline int atomicAdd(int* p, int v) {
+  const int old = *p;
+  *p = old + v;
+  return old;
+}
+
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
+inline unsigned __float_as_uint(float f) {
+  unsigned u;
+  memcpy(&u, &f, 4);
+  return u;
+}
+inline float __uint_as_float(unsigned u) {
+  float f;
+  memcpy(&f, &u, 4);
+  return f;
+}
 
 // Value of `v` in lane `src` of the calling thread's warp.
 template <class T>

@@ -14,8 +14,10 @@ of the consumers' sections.
 * On the card (``cuda``, skips without one): the sections of a captured
   all-four graph give device times on every replay that are positive and
   sum to no more than the replay's, per-section node counts that sum to
-  no more than the graph's, and outputs identical to a graph captured
-  without the sections.
+  no more than the graph's (multiview's at most 1,500, on its kernels),
+  and outputs identical to a graph captured without the sections; and
+  multiview's kernels are its plain version bit for bit at the codec all4
+  cell's shapes.
 """
 
 import json
@@ -137,6 +139,9 @@ def test_graph_sections_on_the_card():
     assert all(n > 0 for n in by_section.values())
     # Two event-record nodes a section besides the sections' own work.
     assert sum(by_section.values()) + 2 * len(sections) <= capture.nodes
+    # Multiview's RANSAC runs on its kernels (5,516 nodes before them at
+    # B=8); its section keeps the LO rounds' sums and the pose stages.
+    assert by_section["multiview"] <= 1500, by_section
     perf.resolve(wait=True)
     for step in range(4):
         spans = perf.spans[step]
@@ -165,3 +170,81 @@ def test_graph_sections_on_the_card():
     a = stream._leaves(graphed(xs, perf))
     b = stream._leaves(plain(xs, perf))
     assert all(torch.equal(x, y) for x, y in zip(a, b, strict=True))
+
+
+@pytest.mark.cuda
+def test_multiview_kernels_are_the_plain_version_on_the_card():
+    """Multiview's RANSAC kernels at the codec all4 cell's shapes (B=8, the
+    16,384-row capacity, masked, 218 hypotheses) on the benchmark's codec
+    bank: the candidates, the adapted cut, the 32 finalists and the winner,
+    the refit E, the LO model, the inliers and their count, and the
+    estimator's rotations are the plain version's bit for bit (the kernels
+    copy PyTorch's card arithmetic at these shapes); one call adds
+    ``LAUNCHES`` launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ofps_torch.core.camera import StandardCamera
+    from ofps_torch.core.motion import SparseFlow
+    from ofps_torch.estimators import multiview as mv
+    from ofps_torch.estimators.base import camera_intrinsics, create_estimator
+    from ofps_torch.kernels import multiview as kmv
+    from ofps_torch.ops import robust
+    from ofps_torch.ops.epipolar import sampson_error
+    from ofps_torch.ops.five_point import five_point_essential
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = json.loads((spec.ROOT / "ofps_bench/configs/codec_all4_1080p.json").read_text())
+    tr = json.loads((spec.ROOT / "ofps_bench/traffic/codec_b8.json").read_text())
+    b = tr["streams"]
+    bank = inputs.codec_bank(SEED, b, cfg, tr)
+    cam = StandardCamera.create(cfg["camera"]["aspect"], cfg["camera"]["fov_y"])
+    est = create_estimator("multiview")
+    params, h = est.params, mv.hypothesis_count(est.params)
+    k, kinv = camera_intrinsics(cam, str(dev))
+    thr = params.max_error / ((k[0, 0] + k[1, 1]) * 0.5)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for t in (1, 2):
+        rows = check._rows(bank, t, cfg["capacity"], dev)
+        flow = SparseFlow(rows[..., 0:2], rows[..., 2:4], rows[..., 4])
+        x1 = mv.normalized_coords(kinv, flow.pos)
+        x2 = mv.normalized_coords(kinv, flow.pos + flow.motion)
+        idx = est.draw(gen, (b,), flow.mask.shape[-1], dev, dense=False)
+        out = kmv._launch(x1, x2, flow.mask, thr, params, h, idx, False, None)
+        ii = robust.as_indices(idx, flow.mask)
+        models, valid = five_point_essential(*(
+            robust._take_points(x, ii) for x in (x1, x2)),
+            robust._take_points(flow.mask[..., None], ii)[..., 0])
+        models = models.reshape(out["models"].shape)
+        same = (out["models"] == models) | (out["models"].isnan() & models.isnan())
+        assert bool(same.all())  # NaNs where the plain version has them
+        valid = valid.reshape(b, -1) & torch.isfinite(models).flatten(-2).all(-1)
+        assert torch.equal(out["valid"].bool(), valid)
+        # The finalists: robust_fit's prescore (the adaptive cut over the
+        # prescore medians, the counts, the stable top 32) on these
+        # candidates.
+        eidx, we = robust.eval_subset(flow.mask, params.eval_cap)
+        pidx = eidx[:, :: eidx.shape[-1] // params.prescore_cap][:, :params.prescore_cap]
+        errs = sampson_error(models, *(robust._take_points(x, pidx)[:, None] for x in (x1, x2)))
+        wp = torch.gather(we, -1, torch.arange(params.prescore_cap, device=dev)[None].expand(b, -1)
+                          * (eidx.shape[-1] // params.prescore_cap))
+        med = robust.masked_median(errs, wp[:, None])
+        t = thr.to(torch.float32)
+        sigma_k = 2.5 * 1.4826 * (1.0 + 5.0 / (torch.clamp(torch.sum(we, dim=-1), min=6.0) - 5))
+        thr2 = torch.maximum(t * t, torch.square(sigma_k) * torch.clamp(
+            torch.min(torch.where(valid, med, 1e30), dim=-1).values, min=0.0))
+        assert torch.equal(thr2, out["thr2"])
+        pre = torch.where(valid, ((errs <= thr2[:, None, None]) & (wp[:, None] > 0.5)).sum(-1), -1)
+        cand = torch.sort(pre.float(), dim=-1, descending=True, stable=True).indices[:, :32]
+        assert torch.equal(cand, out["cand"])
+        before = kmv.ransac.launches
+        e, fit = kmv.ransac(x1, x2, flow.mask, thr, params, h, idx=idx)
+        assert kmv.ransac.launches == before + kmv.LAUNCHES
+        e_p, fit_p = kmv.ransac_plain(x1, x2, flow.mask, thr, params, h, idx=idx)
+        assert torch.equal(e, e_p)
+        for a, p in zip(fit, fit_p, strict=True):
+            assert torch.equal(a, p)
+        assert torch.equal(out["best"], fit_p.best)
+        got, _, _ = est.estimate((), flow, cam, dense=False, fit_idx=idx)
+        ref, _, _ = est.estimate((), flow, cam, dense=False, fit_idx=idx, plain=True)
+        assert torch.equal(got, ref)

@@ -252,6 +252,7 @@ def test_pure_rotation_refit_is_a_null_space_pick(ci, frame):
     (x2^T [t]x R x1 = 0 for every t), and each package's refit E is some
     member of it, picked by float32 rounding."""
     from ofps_torch.estimators import multiview as tmv
+    from ofps_torch.kernels import multiview as kmv
     from ofps_torch.estimators.base import camera_intrinsics
     from ofps_tpu.ops import epipolar as jep
 
@@ -265,7 +266,7 @@ def test_pure_rotation_refit_is_a_null_space_pick(ci, frame):
     design = np.einsum("ni,nj->nij", h2, h1).reshape(-1, 9)
     sv = np.linalg.svd(design, compute_uv=False)
     assert (sv[-3:] < 1e-6 * sv[0]).all() and sv[-4] > 0.1 * sv[0], sv / sv[0]
-    port = tmv._eight_point_essential(x1, x2, sf.mask).numpy().reshape(9)
+    port = kmv._eight_point_essential(x1, x2, sf.mask).numpy().reshape(9)
     ref = np.asarray(jep.project_to_essential(jep.eight_point_fundamental(
         *(jnp.asarray(x.numpy()) for x in (x1, x2, sf.mask))))).reshape(9)
     for e in (port, ref):

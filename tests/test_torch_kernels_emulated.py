@@ -430,3 +430,109 @@ def test_almeida_plain_pipeline_takes_the_plain_version_emulated(emulated, plain
                             est_almeida._inlier_bound(0.05, sparse.pos))
     assert _rot_gap(rot, ref[0]).max().item() <= 1e-6
     assert (ref[2] >= 3).all()
+
+
+# -- multiview's RANSAC ------------------------------------------------------
+
+
+def _multiview_inputs(seed, batch=2, gh=24, gw=40, hyps=16):
+    """Normalized coordinates of a translating, rotating camera over depths
+    2-6 (20% outliers, a third of the points masked), the estimator's
+    threshold tensor and masked draws of ``hyps`` hypotheses."""
+    from ofps_torch.estimators import multiview as mv
+    from ofps_torch.estimators.base import camera_intrinsics
+
+    cam = StandardCamera.create(gw / gh, 60.0)
+    k, kinv = camera_intrinsics(cam, "cpu")
+    rng = np.random.default_rng(seed)
+    ys, xs = np.meshgrid((np.arange(gh) + 0.5) / gh, (np.arange(gw) + 0.5) / gw, indexing="ij")
+    pos = np.stack([xs.ravel(), ys.ravel()], -1)
+    kk = k.numpy().astype(np.float64)
+    flows = []
+    for _ in range(batch):
+        x = (np.c_[pos, np.ones(len(pos))] @ np.linalg.inv(kk).T) * rng.uniform(2, 6, (len(pos), 1))
+        a = rng.uniform(-0.01, 0.01, 3)
+        kx = np.array([[0, -a[2], a[1]], [a[2], 0, -a[0]], [-a[1], a[0], 0]])
+        p2 = (x @ (np.eye(3) + kx).T + rng.normal(0, 0.05, 3)) @ kk.T
+        mot = p2[:, :2] / p2[:, 2:] - pos + rng.normal(0, 2e-6, pos.shape)
+        bad = rng.uniform(size=len(pos)) < 0.2
+        mot[bad] = rng.normal(0, 0.01, (bad.sum(), 2))
+        flows.append((pos, mot, (rng.uniform(size=len(pos)) >= 1 / 3).astype(np.float32)))
+    pos, mot, mask = (_t(np.stack([f[i] for f in flows])) for i in range(3))
+    params = mv.MultiviewParams()
+    thr = params.max_error / ((k[0, 0] + k[1, 1]) * 0.5)
+    idx = robust.draw(torch.Generator().manual_seed(seed), (batch,), len(pos[0]), hyps, 5, "cpu",
+                      dense=False)
+    return (pos, mot, kinv), mask, thr, params, idx
+
+
+def test_multiview_ransac_emulated(emulated):
+    """Multiview's kernels, B=2, 960 points, 16 hypotheses: the normalized
+    coordinates are the estimator's exactly (a stride-0 batch too); given
+    the fit kernel's own
+    candidates, the prescore medians, the adapted cut, the counts, the
+    finalists, the winner and its inliers are ``robust_fit``'s, exactly;
+    each valid candidate is an essential matrix (unit norm, det E and 2 E
+    Et E - tr(E Et) E ~ 0); a LO round's scoring is exact; the eight-point
+    fit within 1e-5 of the plain fit on the same inliers.  The five-point
+    and eight-point algebra copies the card's order of PyTorch's sums and
+    cuBLAS's products, not the CPU's: it is held to the plain version bit
+    for bit on the card (``-m cuda``)."""
+    from ofps_torch.estimators import multiview as mv
+    from ofps_torch.kernels import multiview as kmv
+    from ofps_torch.ops.epipolar import sampson_error
+
+    (pos, mot, kinv), w, thr, params, idx = _multiview_inputs(30)
+    before = kmv.ransac.launches
+    x1, x2 = kmv.normalized_coords(kinv, pos, mot)
+    assert torch.equal(x1, mv.normalized_coords(kinv, pos))
+    assert torch.equal(x2, mv.normalized_coords(kinv, pos + mot))
+    # A batch broadcast with stride 0 (a dense lattice's positions) is read
+    # as its copy, not past its one row.
+    b1, b2 = kmv.normalized_coords(kinv, pos[:1].expand(2, -1, -1), mot[:1].expand(2, -1, -1))
+    assert torch.equal(b1, x1[:1].expand(2, -1, -1)) and torch.equal(b2, x2[:1].expand(2, -1, -1))
+    out = kmv._launch(x1, x2, w, thr, params, 16, idx, False, None)
+    m, valid = out["models"], out["valid"].bool()
+    assert int(valid.sum()) > 100
+    mv_ = m[valid].double()
+    eet = mv_ @ mv_.transpose(-1, -2)
+    cubic = 2 * eet @ mv_ - eet.diagonal(dim1=-2, dim2=-1).sum(-1)[:, None, None] * mv_
+    assert cubic.abs().max().item() < 1e-5 and torch.linalg.det(mv_).abs().max().item() < 1e-5
+    assert (mv_.norm(dim=(-2, -1)) - 1).abs().max().item() < 1e-5
+
+    x1e, x2e, we = x1, x2, w  # 960 points: under the eval cap, all are scored
+    pidx = torch.arange(params.prescore_cap) * (w.shape[-1] // params.prescore_cap)
+    errs = sampson_error(m, x1e[:, None, pidx], x2e[:, None, pidx])
+    med = robust.masked_median(errs, we[:, None, pidx])
+    assert bool(((med == out["med"]) | (med.isnan() & out["med"].isnan())).all())
+    t = thr.to(torch.float32)
+    nvalid = torch.clamp(torch.sum(we, dim=-1), min=6.0)
+    sigma_k = 2.5 * 1.4826 * (1.0 + 5.0 / (nvalid - 5))
+    med_best = torch.min(torch.where(valid, med, 1e30), dim=-1).values
+    thr2 = torch.maximum(t * t, torch.square(sigma_k) * torch.clamp(med_best, min=0.0))
+    assert torch.equal(thr2, out["thr2"])
+    pre = torch.where(valid, ((errs <= thr2[:, None, None]) & (we[:, None, pidx] > 0.5)).sum(-1), -1)
+    assert torch.equal(pre.int(), out["pre"])
+    cand = torch.sort(pre.float(), dim=-1, descending=True, stable=True).indices[:, :32]
+    assert torch.equal(cand, out["cand"])
+    fin = robust._take(m, cand)
+    ok = (sampson_error(fin, x1e[:, None], x2e[:, None]) <= thr2[:, None, None]) & (we[:, None] > 0.5)
+    best = torch.argmax(torch.where(robust._take(valid, cand), ok.sum(-1), -1), dim=-1)
+    assert torch.equal(robust._take(cand, best[:, None])[:, 0], out["best"])
+    model = robust._take(fin, best[:, None])[:, 0]
+    assert torch.equal(model, out["model"])
+    err = sampson_error(model, x1, x2)
+    inl = ((err <= thr2[:, None]) & (w > 0.5)).float()
+    assert torch.equal(inl, out["inliers"]) and torch.equal(err * inl, out["err"])
+
+    e = kmv.eight_point_essential(x1, x2, inl)
+    ref = kmv._eight_point_essential(x1, x2, inl)
+    assert torch.minimum((e - ref).abs().amax((-2, -1)), (e + ref).abs().amax((-2, -1))).max() < 1e-5
+    lo = [torch.empty_like(w) for _ in range(3)]
+    kmv._points(kmv.LO_SCORE, 2, w.shape[-1], w.device, a=x1, b=x2, w=w, m=e, m2=thr2, s1=inl,
+                o1=lo[0], o2=lo[1], o3=lo[2])
+    err2 = sampson_error(e, x1, x2)
+    inl2 = ((err2 <= thr2[:, None]) & (w > 0.5)).float()
+    assert torch.equal(lo[0], err2 * inl) and torch.equal(lo[1], inl2)
+    assert torch.equal(lo[2], err2 * inl2)
+    assert kmv.ransac.launches == before + 2 + 4 + 3 + 1

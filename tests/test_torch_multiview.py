@@ -11,6 +11,10 @@ packages, and float32-chaotic at ~1e-4 (``tests/test_torch_five_point.py``),
 so the winner is compared as its hypothesis and its matrix (within 1e-3, up
 to sign), not as a slot index, and the inlier masks on all but 0.1% of the
 points; the rotations within 2e-3 degrees.
+
+On the CPU the estimator runs its RANSAC's plain version
+(``kernels/multiview.ransac_plain``): the ``robust_fit`` call it replaces,
+bit for bit, and the benchmark's frozen plain multiview's rotations.
 """
 
 import jax
@@ -27,6 +31,7 @@ from ofps_torch.estimators import multiview as tmv
 from ofps_torch.estimators.base import available_estimators as t_available
 from ofps_torch.estimators.base import camera_intrinsics
 from ofps_torch.estimators.base import create_estimator as t_est
+from ofps_torch.kernels import multiview as kmv
 from ofps_torch.ops import epipolar as te
 from ofps_torch.ops import robust as trob
 from ofps_torch.ops.five_point import five_point_essential as t_five
@@ -126,7 +131,7 @@ def test_multiview_matches_jax_with_injected_draws(dense):
     win = bare.model.numpy()
     assert min(np.abs(win - ref_win).max(), np.abs(win + ref_win).max()) <= 1e-3
     full = trob.robust_fit(tx1, tx2, _t(mask), idx=tidx,
-                           **_fit_kwargs(te, t_five, tmv._eight_point_essential, dense))
+                           **_fit_kwargs(te, t_five, kmv._eight_point_essential, dense))
     assert (full.inliers.numpy() != ref_inl).mean() <= 1e-3
     n_valid = mask.sum()
     assert 0.75 * n_valid < full.inliers.sum() < 0.85 * n_valid
@@ -228,3 +233,68 @@ def test_registry_degenerate_input_and_interop():
     r, _, _ = t_est("multiview").estimate(
         (), TSparse(_t(pos), _t(mot), _t(mask)), TCAM, torch.Generator().manual_seed(0))
     np.testing.assert_array_equal(r.numpy(), np.array([1.0, 0.0, 0.0, 0.0], np.float32))
+
+
+def _cpu_fit_inputs(dense, seed=3):
+    """The dense or masked fixture as the estimator feeds its RANSAC: the
+    normalized coordinates, the weights, its threshold tensor and torch
+    draws."""
+    pos, mot, mask = _motion_flow(seed, invalid=0.0 if dense else 1 / 3)
+    k, kinv = camera_intrinsics(TCAM, "cpu")
+    x1 = tmv.normalized_coords(kinv, _t(pos))
+    x2 = tmv.normalized_coords(kinv, _t(pos + mot))
+    params = tmv.MultiviewParams()
+    thr = params.max_error / ((k[0, 0] + k[1, 1]) * 0.5)
+    idx = trob.draw(torch.Generator().manual_seed(seed + 10), (), len(pos), H_COUNT, 5, "cpu",
+                    dense=dense)
+    return (pos, mot, mask), (x1, x2, _t(mask)), thr, params, idx
+
+
+@pytest.mark.parametrize("dense", [True, False], ids=["dense", "masked"])
+def test_ransac_plain_is_the_robust_fit_it_replaces(dense):
+    """``kernels/multiview.ransac_plain`` is the estimator's former
+    ``robust_fit`` call and refit on its inliers, bit for bit (model,
+    inliers, score, winner, refit E); ``ransac`` on CPU tensors takes it."""
+    _, (x1, x2, w), thr, params, idx = _cpu_fit_inputs(dense)
+    ref = trob.robust_fit(x1, x2, w, idx=idx, **dict(
+        _fit_kwargs(te, t_five, kmv._eight_point_essential, dense), threshold=thr))
+    ref_e = kmv._eight_point_essential(x1, x2, ref.inliers)
+    for got_e, got in (kmv.ransac_plain(x1, x2, w, thr, params, H_COUNT, idx=idx, dense=dense),
+                       kmv.ransac(x1, x2, w, thr, params, H_COUNT, idx=idx, dense=dense)):
+        assert torch.equal(got_e, ref_e)
+        for a, b in zip(got, ref, strict=True):
+            assert torch.equal(a, b)
+    assert 0.75 * float(w.sum()) < float(ref.score) < 0.85 * float(w.sum())
+
+
+@pytest.mark.parametrize("dense", [True, False], ids=["dense", "masked"])
+def test_estimator_on_the_cpu_is_the_frozen_reference(dense):
+    """On the CPU the estimator (``plain`` or not) gives the rotations of
+    the benchmark's frozen plain multiview (``ofps_bench/reference``), bit
+    for bit, for two streams with the same draws."""
+    from ofps_bench.reference import multiview as ref_mv  # noqa: F401 (registers it)
+    from ofps_bench.reference.camera import StandardCamera as RCam
+    from ofps_bench.reference.est_base import create_estimator as r_est
+    from ofps_bench.reference.motion import SparseFlow as RSparse
+
+    flows = [_cpu_fit_inputs(dense, seed)[0] for seed in (3, 4)]
+    pos, mot, mask = (torch.stack([_t(f[i]) for f in flows]) for i in range(3))
+    idx = trob.draw(torch.Generator().manual_seed(21), (2,), pos.shape[1], H_COUNT, 5, "cpu",
+                    dense=dense)
+    ref, _, _ = r_est("multiview").estimate((), RSparse(pos, mot, mask), RCam.create(GW / GH, 60.0),
+                                           dense=dense, fit_idx=idx)
+    for plain in (False, True):
+        got, _, _ = t_est("multiview").estimate((), TSparse(pos, mot, mask), TCAM, dense=dense,
+                                                fit_idx=idx, plain=plain)
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("change,kernels", [
+    ({}, True), ({"use_five_point": False}, False), ({"use_ransac": False}, False),
+    ({"adaptive_threshold": False}, False), ({"prescore_cap": 256}, False),
+    ({"finalists": 64}, False)])
+def test_kernels_cover_the_default_params_only(change, kernels):
+    """The kernels or the plain version, decided from ``MultiviewParams``
+    alone: five-point RANSAC with the adaptive cut, a prescore of at most
+    128 points and at most 32 finalists."""
+    assert kmv.uses_kernels(tmv.MultiviewParams(**change)) is kernels
