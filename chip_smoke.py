@@ -810,12 +810,12 @@ def replay_kernels(torch, pipe, state, field, draws, props=None, part="almeida_"
     CUDA events."""
     from torch.profiler import ProfilerActivity, profile
 
-    graphs = len(pipe._graphs)
+    graphs = len(pipe.graphs.calls)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         pipe._run_consumers(state, field, draws, props)
         torch.cuda.synchronize()
-    if len(pipe._graphs) != graphs:
+    if len(pipe.graphs.calls) != graphs:
         fail("replay_kernels: the call captured a new graph")
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     return sum(part in e.name for e in kernels) if kernels else None
@@ -991,9 +991,9 @@ def homography_vs_plain(torch, pipe_p, outs, outs_p, draws):
 def consumer_diff(torch, a, b) -> float:
     """Max |a - b| over the tensors of two ``_consume`` outputs: poses,
     deltas, carries and detection."""
-    from ofps_torch.parallel.stream import _leaves
+    from ofps_torch.pipeline.graphs import leaves
 
-    return max((x.float() - y.float()).abs().max().item() for x, y in zip(_leaves(a), _leaves(b)))
+    return max((x.float() - y.float()).abs().max().item() for x, y in zip(leaves(a), leaves(b)))
 
 
 def run_all4(torch, device, counters):
@@ -1014,9 +1014,9 @@ def run_all4(torch, device, counters):
     # Multiview's kernels: launched from the host twice a capture, and all
     # of one call's in every replay of the consumers' graph.
     mv_host = counts["multiview_ransac"]
-    if mv_host != 2 * multiview_launches() * len(pipe._graphs):
+    if mv_host != 2 * multiview_launches() * len(pipe.graphs.calls):
         fail(f"all4: {mv_host} host launches of multiview's kernels for "
-             f"{len(pipe._graphs)} capture(s)")
+             f"{len(pipe.graphs.calls)} capture(s)")
     steps = frames.shape[0]
     finite = all(bool(torch.isfinite(x).all()) for o in outs
                  for x in (*o.rot, *o.pos, *o.delta_rot, *o.delta_tr))
@@ -1043,7 +1043,7 @@ def run_all4(torch, device, counters):
     for _ in range(2):
         draws = tuple(e.draw(gen, (batch,), n, device) for e in pipe.estimators)
         graphed = pipe._run_consumers(g_state, grid, draws, None)
-        eager = pipe._consume(e_state.est, e_state.rot, e_state.pos, grid, draws)
+        eager = pipe._consume(grid, e_state.rot, e_state.pos, draws, e_state.est)
         torch.cuda.synchronize()
         g_err = max(g_err, consumer_diff(torch, graphed, eager))
         g_state = g_state._replace(rot=graphed[0], pos=graphed[1], est=graphed[4])
@@ -1077,7 +1077,7 @@ def run_all4(torch, device, counters):
         fail("all4: the consumers' graph and the eager calls disagree")
     mv_replay = replay_kernels(torch, pipe, g_state, grid, tuple(
         e.draw(gen, (batch,), n, device) for e in pipe.estimators), part="::mv_")
-    phase("all4", f"multiview_ransac: {mv_host} host launches for {len(pipe._graphs)} "
+    phase("all4", f"multiview_ransac: {mv_host} host launches for {len(pipe.graphs.calls)} "
           f"capture(s); {mv_replay} multiview kernels in a replay (torch.profiler)")
     if mv_replay not in (None, multiview_launches()):
         fail("all4: multiview's kernels did not run once a replay, in the graph")
@@ -1131,7 +1131,7 @@ def run_estimators(torch, device, batch: int) -> None:
     gen_e = torch.Generator(device=device).manual_seed(SEED + 4)
     draws = tuple(e.draw(gen_e, (batch,), n_grid, device) for e in pipe.estimators)
     graphed = pipe._run_consumers(state, rgrid, draws, None)
-    eager = pipe._consume(state.est, state.rot, state.pos, rgrid, draws)
+    eager = pipe._consume(rgrid, state.rot, state.pos, draws, state.est)
     torch.cuda.synchronize()
     g_err = consumer_diff(torch, graphed, eager)
     truth = quat.conj(q_true)  # the estimators return the inverse rotation
@@ -1236,7 +1236,7 @@ def run_codec(torch, device, counters, smi):
     from ofps_torch.core.motion import Densifier, flow_cell_index
     from ofps_torch.detectors.block_motion import block_dim
     from ofps_torch.decoders.mvec import MvecDecoder
-    from ofps_torch.parallel.stream import _leaves
+    from ofps_torch.pipeline.graphs import leaves
     from ofps_torch.pipeline.runtime import LivePipeline
 
     b, cap = CODEC_STREAMS, CODEC_CAPACITY
@@ -1335,10 +1335,10 @@ def run_codec(torch, device, counters, smi):
     for flow in flows[3:5]:
         draws = tuple(e.draw(gen, (b,), cap, device, dense=False) for e in pipe4.estimators)
         graphed = pipe4._run_consumers(g_state, flow, draws, live.props)
-        eager = pipe4._consume(e_state.est, e_state.rot, e_state.pos, flow, draws, live.props)
+        eager = pipe4._consume(flow, e_state.rot, e_state.pos, draws, e_state.est, live.props)
         torch.cuda.synchronize()
         g_err = max(g_err, max((x.float() - y.float()).abs().max().item()
-                               for x, y in zip(_leaves(graphed), _leaves(eager))))
+                               for x, y in zip(leaves(graphed), leaves(eager))))
         g_state = g_state._replace(rot=graphed[0], pos=graphed[1], est=graphed[4])
         e_state = e_state._replace(rot=eager[0], pos=eager[1], est=eager[4])
     # Almeida's kernels in one replay of the live graph (props as device
@@ -1346,20 +1346,20 @@ def run_codec(torch, device, counters, smi):
     launches["almeida_ransac"] = replay_kernels(torch, pipe4, g_state, flows[5], draws,
                                                 live.props)
     before = live.step(flows[5], gen)[1].detection.detected.tolist()
-    graphs = len(pipe4._graphs)
+    graphs = len(pipe4.graphs.calls)
     applied = live.set_property("detector", "target_motion", 0.1)
     after = live.step(flows[5], gen)[1].detection.detected.tolist()
     live.set_property("detector", "target_motion", pipe4.detector.params.target_motion)
     phase("codec", f"live all four B={b}: libmv has={has}; graph vs eager over two steps "
           f"(carry through the graph) max |diff| {g_err:.3e}; target_motion 0.003 -> 0.1: "
           f"applied={applied}, detected {before} -> {after}, graphs {graphs} -> "
-          f"{len(pipe4._graphs)}, eager runs {pipe4.eager_runs}; almeida kernels in a "
+          f"{len(pipe4.graphs.calls)}, eager runs {pipe4.eager_runs}; almeida kernels in a "
           f"replay {launches['almeida_ransac']} (torch.profiler)")
     if launches["almeida_ransac"] not in (None, ALMEIDA_LAUNCHES):
         fail("codec: almeida's kernels did not run once a replay")
     if g_err > GRAPH_TOL or min(has) < 1.0:
         fail("codec: the consumers' graph and eager calls disagree, or libmv's chain not set")
-    if not (applied and any(before) and not any(after) and graphs == len(pipe4._graphs) == 1
+    if not (applied and any(before) and not any(after) and graphs == len(pipe4.graphs.calls) == 1
             and pipe4.eager_runs == 0):
         fail("codec: a live property change was not seen, or it captured a new graph")
 
@@ -1741,7 +1741,7 @@ def outputs_diff(torch, a, b) -> float:
     translation, detections, and the poses of every estimator but
     homography, whose rotations :func:`homography_vs_plain` holds family
     by family (and whose positions integrate them)."""
-    from ofps_torch.parallel.stream import _leaves
+    from ofps_torch.pipeline.graphs import leaves
 
     keep = [i for i, name in enumerate(ESTIMATORS) if name != "homography"]
 
@@ -1750,7 +1750,7 @@ def outputs_diff(torch, a, b) -> float:
                 [o.delta_rot[i] for i in keep], o.delta_tr, o.detection)
 
     return max((x.float() - y.float()).abs().max().item()
-               for x, y in zip(_leaves([held(o) for o in a]), _leaves([held(o) for o in b]))
+               for x, y in zip(leaves([held(o) for o in a]), leaves([held(o) for o in b]))
                if x.numel())
 
 
@@ -2496,7 +2496,7 @@ def consumer_kernels(torch, pipe, state, grid, draws):
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        pipe._consume(state.est, state.rot, state.pos, grid, draws)
+        pipe._consume(grid, state.rot, state.pos, draws, state.est)
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
@@ -2595,9 +2595,9 @@ def main() -> None:
         torch, pipe, state, last.grid, tuple(e.draw(gen, (batch,), n_last, device)
                                              for e in pipe.estimators))
     phase("slice", f"almeida_ransac: {counts['almeida_ransac']} host launches for "
-          f"{len(pipe._graphs)} capture(s) and {pipe.graph_replays} replays; "
+          f"{len(pipe.graphs.calls)} capture(s) and {pipe.graph_replays} replays; "
           f"{launches['almeida_ransac']} almeida kernels in a replay (torch.profiler)")
-    if (counts["almeida_ransac"] != 2 * ALMEIDA_LAUNCHES * len(pipe._graphs)
+    if (counts["almeida_ransac"] != 2 * ALMEIDA_LAUNCHES * len(pipe.graphs.calls)
             or pipe.graph_replays != frames.shape[0] + 1
             or launches["almeida_ransac"] not in (None, ALMEIDA_LAUNCHES)):
         fail("serving_slice: almeida's kernels did not run once a replay, in the graph")

@@ -193,7 +193,7 @@ def run_tracking(
     finally:
         feed.stop()
 
-    return TrackingResult(frames=frames, tracks=tracks, perf=perf, graphs=len(pipe._graphs),
+    return TrackingResult(frames=frames, tracks=tracks, perf=perf, graphs=len(pipe.graphs.calls),
                           graph_replays=pipe.graph_replays, eager_runs=pipe.eager_runs)
 
 

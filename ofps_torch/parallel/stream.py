@@ -13,9 +13,8 @@
 
 Rotation/position state, estimator carry and the dense-flow warm start all
 travel in :class:`StreamState`; B streams form the leading batch dim.  On
-CUDA the estimators and the detector replay as one CUDA graph per input
-kind and shape, the estimators' carries (libmv's :class:`PrevMotion`) and
-the per-frame properties (0-d device tensors) passing in as static inputs.
+CUDA the estimators and the detector replay as a CUDA graph
+(:mod:`ofps_torch.pipeline.graphs`), carries and props among its inputs.
 
 ``shardings`` (:mod:`ofps_torch.parallel.sharding`) spreads a step over a
 (stream, space) mesh: the batch splits into the mesh's rows, each row runs
@@ -41,7 +40,6 @@ that every replay gives each section's device time (children of
 from __future__ import annotations
 
 import contextlib
-import ctypes
 import functools
 from typing import Any, List, NamedTuple, Optional, Sequence, Tuple, Union
 
@@ -77,6 +75,7 @@ from ofps_torch.parallel.sharding import (
     shard_put,
 )
 from ofps_torch.parallel.spatial import dense_flow_warm_spatial
+from ofps_torch.pipeline.graphs import GraphCache, Sections, leaves, tile
 from ofps_torch.pipeline.runtime import PerfStats, set_last_perf
 
 
@@ -167,10 +166,7 @@ class StreamPipeline:
         self.plain = plain
         self.shard = shardings
         self._grid_plans: dict = {}
-        self._graphs: dict = {}
-        # Consumer runs by kind: CUDA-graph replays and eager calls.
-        self.graph_replays = 0
-        self.eager_runs = 0
+        self.graphs = GraphCache()
         self.perf = perf if perf is not None else PerfStats()
         self._row = _row
         if _row is None:
@@ -254,7 +250,7 @@ class StreamPipeline:
             has_prev=torch.zeros((batch,), dtype=torch.float32, device=dev),
             rot=tuple(quat.identity(device=dev).expand(batch, 4) for _ in range(e)),
             pos=tuple(torch.zeros((batch, 3), device=dev) for _ in range(e)),
-            est=tuple(_broadcast_state(est.init(), batch, dev) for est in self.estimators),
+            est=tuple(tile(est.init(), batch, dev) for est in self.estimators),
         )
 
     def dyn_props(self):
@@ -269,8 +265,8 @@ class StreamPipeline:
 
     # -- consumers -----------------------------------------------------------
 
-    def _consume(self, est_states, rot, pos, field: Union[torch.Tensor, SparseFlow],
-                 draws, props=None, sections: Optional["_Sections"] = None):
+    def _consume(self, field: Union[torch.Tensor, SparseFlow], rot, pos, draws, est_states,
+                 props=None, sections: Optional[Sections] = None):
         """Estimators + detector: a fixed sequence of device operations
         (random inputs come in as ``draws``, one per estimator, None for an
         estimator without them).  ``field`` is the all-valid (B, gh, gw, 2)
@@ -307,7 +303,7 @@ class StreamPipeline:
         return tuple(rots), tuple(poss), tuple(dr), tuple(dt), tuple(est_out), detection
 
     @contextlib.contextmanager
-    def _section(self, kind: str, name: str, sections: Optional["_Sections"]):
+    def _section(self, kind: str, name: str, sections: Optional[Sections]):
         """The span ``consumers.<kind>.<name>`` of an estimator (``est``) or
         the detector (``det``); inside a capture also a timed section of
         the graph."""
@@ -320,44 +316,20 @@ class StreamPipeline:
                     yield
 
     def _run_consumers(self, state: StreamState, field, draws, props):
-        """:meth:`_consume`, replayed as a CUDA graph on CUDA.
+        """:meth:`_consume`, replayed as a CUDA graph on CUDA (``graphs``).
 
         Eagerly the estimators' RANSAC stages are thousands of small
         launches a step (homography ~1,900, multiview and libmv ~5,400
         each; almeida's are three hand kernels), so the step is bound by the
         host launching them; a graph replays the same kernels in one
-        launch.  A graph is captured per input kind (grid or sparse flow),
-        shapes and dtypes, and set of prop names: the field, the integrated
-        poses, the draws (a tensor or a tuple of tensors per estimator), the
-        estimators' carries and the props' values (0-d float32 tensors) are
-        its static inputs, so a new prop value is a copy, not a new graph.
-        The new carries come out with the other outputs.  It runs eagerly on
-        the CPU, and where a prop is neither a number nor a 0-d tensor.
+        launch.  The new carries come out with the other outputs.
         """
-        names, values = (_prop_tensors(props, self.device) if self.device.type == "cuda"
-                         else (None, None))
-        if names is None:
-            self.eager_runs += 1
-            return self._consume(state.est, state.rot, state.pos, field, draws, props)
-        tree = (field, tuple(state.rot), tuple(state.pos), tuple(draws), tuple(state.est),
-                values)
-        inputs = tuple(_leaves(tree))
-        gkey = (str(inputs[0].device), type(field).__name__,
-                tuple((tuple(x.shape), x.dtype) for x in inputs), names)
-        if gkey not in self._graphs:
+        args = (field, tuple(state.rot), tuple(state.pos), tuple(draws), tuple(state.est))
+        return self.graphs.run(self._consume, args, props, self.device, self.perf)
 
-            sections = _Sections()
-
-            def fn(*xs):
-                f, rot, pos, d, est, vals = _rebuild(tree, iter(xs))
-                return self._consume(est, rot, pos, f, d, _props_from(names, vals), sections)
-
-            with self.perf.span("consumers.capture") as sp:
-                self._graphs[gkey] = _CapturedCall(fn, inputs, sections)
-                sp.nodes = self._graphs[gkey].nodes
-                sp.nodes_by_section = dict(sections.nodes)
-        self.graph_replays += 1
-        return self._graphs[gkey](inputs, self.perf)
+    # Consumer runs by kind, over every mesh row: graph replays, eager calls.
+    graph_replays = property(lambda self: sum(p.graphs.replays for p in self._rows or (self,)))
+    eager_runs = property(lambda self: sum(p.graphs.eager_runs for p in self._rows or (self,)))
 
     # -- steps ---------------------------------------------------------------
 
@@ -497,7 +469,7 @@ class StreamPipeline:
         outputs gathered on the mesh's first device."""
         rows = self._split(x)
         if draws is None:
-            lead = (sum(_leaves(r)[0].shape[0] for r in rows),)
+            lead = (sum(leaves(r)[0].shape[0] for r in rows),)
             draws = tuple(
                 None if est.draw is None
                 else est.draw(generator, lead, n, self.device, **draw_kw)
@@ -505,8 +477,6 @@ class StreamPipeline:
             )
         results = [getattr(row, method)(s, xr, props=props, draws=d)
                    for row, s, xr, d in zip(self._rows, state, rows, self._split(draws))]
-        self.graph_replays = sum(row.graph_replays for row in self._rows)
-        self.eager_runs = sum(row.eager_runs for row in self._rows)
         return (RowShards(r[0] for r in results),
                 gather(RowShards(r[1] for r in results), self.shard))
 
@@ -542,178 +512,3 @@ class StreamPipeline:
             outs.append(out)
         return state, outs
 
-
-def _prop_tensors(props, device):
-    """(names, values) of ``props``: its structure (the sorted prop names of
-    each estimator, then the detector's) and its values as 0-d float32
-    tensors on ``device``, in that order; ((), ()) for None, and (None,
-    None) when a value is neither a number nor a 0-d tensor."""
-    if props is None:
-        return (), ()
-    groups = (*props["estimators"], props["detector"])
-    names = tuple(tuple(sorted(g)) for g in groups)
-    values = []
-    for g, ns in zip(groups, names):
-        for n in ns:
-            v = g[n]
-            if isinstance(v, torch.Tensor) and v.dim() == 0:
-                values.append(v.to(device, torch.float32))
-            elif isinstance(v, (int, float)) and not isinstance(v, bool):
-                values.append(_device_scalar(float(v), str(device)))
-            else:
-                return None, None
-    return names, tuple(values)
-
-
-@functools.lru_cache(maxsize=256)
-def _device_scalar(value: float, device: str) -> torch.Tensor:
-    """A 0-d float32 tensor of ``value`` on ``device``, made once (a graph
-    replay copies from it; nothing writes to it)."""
-    return torch.tensor(value, dtype=torch.float32, device=device)
-
-
-def _props_from(names, values):
-    """The props dict of :func:`_prop_tensors`' (names, values)."""
-    if not names:
-        return None
-    it = iter(values)
-    groups = [{n: next(it) for n in ns} for ns in names]
-    return {"estimators": tuple(groups[:-1]), "detector": groups[-1]}
-
-
-def _broadcast_state(x, batch: int, device):
-    """An estimator's unbatched ``init()`` carry tiled to B streams."""
-    return _rebuild(x, (t.to(device).expand((batch,) + t.shape).clone() for t in _leaves(x)))
-
-
-def _leaves(x) -> List[torch.Tensor]:
-    """The tensors of a nest of tuples / named tuples (None has none)."""
-    if x is None:
-        return []
-    if isinstance(x, torch.Tensor):
-        return [x]
-    return [leaf for v in x for leaf in _leaves(v)]
-
-
-def _rebuild(template, leaves):
-    """``template``'s nest with its tensors taken in order from ``leaves``."""
-    if template is None:
-        return None
-    if isinstance(template, torch.Tensor):
-        return next(leaves)
-    fields = [_rebuild(v, leaves) for v in template]
-    return type(template)(*fields) if hasattr(template, "_fields") else tuple(fields)
-
-
-def _clone(x):
-    return _rebuild(x, (t.clone() for t in _leaves(x)))
-
-
-@functools.lru_cache(maxsize=1)
-def _cu_graph_get_nodes():
-    """CUDA's ``cuGraphGetNodes`` from ``libcuda.so.1``."""
-    fn = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _graph_nodes(graph) -> int:
-    """The node count of the ``cudaGraph_t`` handle ``graph``."""
-    n = ctypes.c_size_t(0)
-    rc = _cu_graph_get_nodes()(graph, None, ctypes.byref(n))
-    if rc != 0:
-        raise RuntimeError(f"cuGraphGetNodes failed with CUresult {rc}")
-    return n.value
-
-
-@functools.lru_cache(maxsize=1)
-def _cu_stream_get_capture_info():
-    """CUDA's ``cuStreamGetCaptureInfo_v2`` from ``libcuda.so.1``."""
-    fn = ctypes.CDLL("libcuda.so.1").cuStreamGetCaptureInfo_v2
-    fn.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
-                   ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _capturing_nodes(stream: "torch.cuda.Stream") -> int:
-    """The node count of the graph that ``stream`` is capturing, so far."""
-    status, graph = ctypes.c_int(0), ctypes.c_void_p()
-    rc = _cu_stream_get_capture_info()(stream.cuda_stream, ctypes.byref(status), None,
-                                       ctypes.byref(graph), None, None)
-    if rc != 0 or status.value != 1:  # CU_STREAM_CAPTURE_STATUS_ACTIVE
-        raise RuntimeError(f"cuStreamGetCaptureInfo failed with CUresult {rc}, "
-                           f"capture status {status.value}")
-    return _graph_nodes(graph)
-
-
-class _Sections:
-    """The timed sections of a graph under capture: for each, its span's
-    name and a pair of timing events recorded into the graph as
-    event-record nodes (the events are the graph's: each replay records
-    them again), and by the consumer's name the nodes of the section's own
-    work, counted on the graph in progress."""
-
-    def __init__(self):
-        self.events: List[Tuple[str, torch.cuda.Event, torch.cuda.Event]] = []
-        self.nodes: dict = {}  # name -> nodes, summed over sections of one name
-
-    @contextlib.contextmanager
-    def timed(self, span: str, name: str):
-        stream = torch.cuda.current_stream()
-        start = torch.cuda.Event(enable_timing=True, external=True)
-        end = torch.cuda.Event(enable_timing=True, external=True)
-        start.record(stream)
-        n0 = _capturing_nodes(stream)
-        yield
-        n1 = _capturing_nodes(stream)
-        end.record(stream)
-        self.events.append((span, start, end))
-        self.nodes[name] = self.nodes.get(name, 0) + n1 - n0
-
-
-class _CapturedCall:
-    """``fn(*inputs)`` captured as a CUDA graph over static input buffers:
-    a call copies its inputs in, replays, and returns clones of the outputs
-    (the next replay overwrites the static ones), each of the three a span
-    of the recorder it is given.  ``nodes``: the captured graph's node
-    count, read before it is instantiated.  ``sections``: what ``fn``
-    timed while it was captured; each replay gives its sections' spans
-    under the replay's, settled before the next replay."""
-
-    def __init__(self, fn, inputs, sections: Optional[_Sections] = None):
-        self.sections = sections.events if sections is not None else []
-        self._replayed: List = []  # the last replay's section spans
-        # Capture and replay with the inputs' card current, so that the
-        # side stream, the capture stream and every launch in ``fn`` belong
-        # to that card.  The capture runs on the side stream: the default
-        # capture stream of ``torch.cuda.graph`` is made once per process,
-        # on the card current at the first capture.
-        self.device = inputs[0].device
-        with torch.cuda.device(self.device):
-            self.inputs = tuple(x.clone() for x in inputs)
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(side):
-                fn(*self.inputs)  # warm-up: lazily built constants and caches
-            torch.cuda.current_stream(self.device).wait_stream(side)
-            self.graph = torch.cuda.CUDAGraph(keep_graph=True)
-            with torch.cuda.graph(self.graph, stream=side):
-                self.outputs = fn(*self.inputs)
-            self.nodes = _graph_nodes(self.graph.raw_cuda_graph())
-            self.graph.instantiate()
-
-    def __call__(self, inputs, perf: PerfStats):
-        with torch.cuda.device(self.device):
-            perf.settle(self._replayed)
-            sp = perf.open("consumers.copy_in")
-            for static, x in zip(self.inputs, inputs):
-                static.copy_(x)
-            launch = perf.open("consumers.launch", t=perf.close(sp), device=self.device)
-            self.graph.replay()
-            sp = perf.open("consumers.clone", t=perf.close(launch))
-            out = _clone(self.outputs)
-            perf.close(sp)
-            self._replayed = perf.replayed(launch, self.sections)
-            return out

@@ -28,6 +28,7 @@ import torch
 
 from ofps_torch.core.properties import set_properties
 from ofps_torch.decoders.base import DecodedFrame, Decoder
+from ofps_torch.pipeline.graphs import device_props
 
 
 class DecoderFeed:
@@ -447,12 +448,7 @@ class LivePipeline:
     def __init__(self, pipe, batch: int, height: int, width: int,
                  from_flow: bool = False):
         self.pipe = pipe
-        dev = pipe.device
-        props = pipe.dyn_props()
-        self.props = {
-            "estimators": tuple(_device_props(d, dev) for d in props["estimators"]),
-            "detector": _device_props(props["detector"], dev),
-        }
+        self.props = device_props(pipe.dyn_props(), pipe.device)
         self.state = pipe.init_state(batch, height, width)
         self._step = pipe.step_from_flow if from_flow else pipe.step_from_frames
 
@@ -487,7 +483,3 @@ class LivePipeline:
             self.state, frame_or_flow, generator, props=self.props
         )
         return self.state, out
-
-
-def _device_props(d: dict, device) -> dict:
-    return {k: torch.tensor(float(v), dtype=torch.float32, device=device) for k, v in d.items()}

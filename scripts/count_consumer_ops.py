@@ -54,7 +54,7 @@ def main() -> None:
     from ofps_torch.core.camera import StandardCamera
     from ofps_torch.core.motion import field_to_sparse
     from ofps_torch.estimators.base import available_estimators, create_estimator
-    from ofps_torch.parallel.stream import _broadcast_state
+    from ofps_torch.pipeline.graphs import tile
 
     class Count(TorchDispatchMode):
         def __init__(self):
@@ -79,7 +79,7 @@ def main() -> None:
     for name in available_estimators():
         est = create_estimator(name)
         draws = est.draw(gen, (args.batch,), 84 * 150, "cpu")
-        carry = _broadcast_state(est.init(), args.batch, "cpu")
+        carry = tile(est.init(), args.batch, "cpu")
         est.estimate(carry, flow, cam, dense=True, fit_idx=draws)  # fill the caches
         with Count() as count:
             est.estimate(carry, flow, cam, dense=True, fit_idx=draws)

@@ -61,10 +61,10 @@ def main() -> None:
         n = grid.shape[1] * grid.shape[2]
         draws = tuple(e.draw(gen, (b,), n, dev) for e in pipe.estimators)
         replay_ms = cs.time_ms(torch, lambda: pipe._run_consumers(st, grid, draws, None), 10)[0]
-        pipe._consume(st.est, st.rot, st.pos, grid, draws)
+        pipe._consume(grid, st.rot, st.pos, draws, st.est)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            pipe._consume(st.est, st.rot, st.pos, grid, draws)
+            pipe._consume(grid, st.rot, st.pos, draws, st.est)
             torch.cuda.synchronize()
         kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         name = "+".join(names) + f" + block_motion B={b}"

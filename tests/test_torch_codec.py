@@ -29,7 +29,7 @@ from ofps_torch.decoders import flo as tflo
 from ofps_torch.decoders import mvec as tmvec
 from ofps_torch.estimators.base import create_estimator as t_est
 from ofps_torch.ops import robust as trob
-from ofps_torch.parallel.stream import _leaves
+from ofps_torch.pipeline.graphs import leaves
 from ofps_tpu.apps import gt as jgt
 from ofps_tpu.core import properties as jprops
 from ofps_tpu.decoders import flo as jflo
@@ -279,7 +279,7 @@ def test_masked_draw_mapping_gives_jax_indices(name):
         by_u, by_idx = u, idx
     a = est.estimate(state, flow, cam, dense=False, fit_idx=by_u)
     b = est.estimate(state, flow, cam, dense=False, fit_idx=by_idx)
-    for x, y in zip(_leaves(a), _leaves(b)):
+    for x, y in zip(leaves(a), leaves(b)):
         assert torch.equal(x, y)
     assert bool(torch.isfinite(a[0]).all())
 
@@ -314,4 +314,4 @@ def test_all_masked_flow_gives_identity_in_both_packages(name):
     r, t, st2 = test.estimate(state, flow, TCam.create(1.0, 90.0), dense=False, fit_idx=draws)
     assert torch.equal(r[0], torch.tensor([1.0, 0.0, 0.0, 0.0]))
     assert torch.equal(t[0], torch.zeros(3))
-    assert all(torch.equal(a, b) for a, b in zip(_leaves(st2), _leaves(state)))  # held
+    assert all(torch.equal(a, b) for a, b in zip(leaves(st2), leaves(state)))  # held

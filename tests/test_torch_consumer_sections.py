@@ -113,6 +113,7 @@ def test_graph_sections_on_the_card():
     from ofps_torch.detectors.base import create_detector
     from ofps_torch.estimators.base import create_estimator
     from ofps_torch.parallel import stream
+    from ofps_torch.pipeline import graphs
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -130,7 +131,7 @@ def test_graph_sections_on_the_card():
         flows.append(SparseFlow(rows[..., 0:2], rows[..., 2:4], rows[..., 4]))
         state, _ = pipe.step_from_flow(state, flows[-1], gen)
     torch.cuda.synchronize()
-    assert pipe.graph_replays == 4 and len(pipe._graphs) == 1
+    assert pipe.graph_replays == 4 and len(pipe.graphs.calls) == 1
     sections = [f"consumers.est.{n}" for n in NAMES] + ["consumers.det.block_motion"]
     capture = next(sp for spans in perf.spans.values() for sp in spans
                    if sp.name == "consumers.capture")
@@ -154,21 +155,21 @@ def test_graph_sections_on_the_card():
 
     # The same graph captured without the sections: the same outputs, bit
     # for bit, and the event-record nodes are the only nodes between them.
-    (graphed,) = pipe._graphs.values()
+    (graphed,) = pipe.graphs.calls.values()
     draws = tuple(e.draw(gen, (B,), cfg["capacity"], dev, dense=False)
                   for e in pipe.estimators)
     # ``_run_consumers``' static inputs, without props.
     tree = (flows[-1], tuple(state.rot), tuple(state.pos), draws, tuple(state.est), ())
-    xs = tuple(stream._leaves(tree))
+    xs = tuple(graphs.leaves(tree))
 
     def consume(*ys):
-        f, rot, pos, d, est, _ = stream._rebuild(tree, iter(ys))
-        return pipe._consume(est, rot, pos, f, d)
+        f, rot, pos, d, est, _ = graphs.rebuild(tree, iter(ys))
+        return pipe._consume(f, rot, pos, d, est)
 
-    plain = stream._CapturedCall(consume, xs)
+    plain = graphs.CapturedCall(consume, xs)
     assert plain.nodes + 2 * len(sections) == graphed.nodes
-    a = stream._leaves(graphed(xs, perf))
-    b = stream._leaves(plain(xs, perf))
+    a = graphs.leaves(graphed(xs, perf))
+    b = graphs.leaves(plain(xs, perf))
     assert all(torch.equal(x, y) for x, y in zip(a, b, strict=True))
 
 

@@ -30,7 +30,7 @@ from ofps_torch.core.motion import SparseFlow as TSparse
 from ofps_torch.detectors.base import create_detector as t_det
 from ofps_torch.estimators.base import create_estimator as t_est
 from ofps_torch.parallel.stream import StreamPipeline as TPipe
-from ofps_torch.parallel.stream import _leaves
+from ofps_torch.pipeline.graphs import leaves
 from ofps_tpu.core.camera import StandardCamera as JCam
 from ofps_tpu.core.motion import SparseFlow as JSparse
 from ofps_tpu.detectors.base import create_detector as j_det
@@ -158,14 +158,14 @@ def test_graphed_flow_consumers_match_eager_on_cuda():
                device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     state, _ = tp.scan_flow(tp.init_state(B, 1, 1), TSparse(pos, mot, mask), gen)
-    assert tp.graph_replays == T and tp.eager_runs == 0 and len(tp._graphs) == 1
+    assert tp.graph_replays == T and tp.eager_runs == 0 and len(tp.graphs.calls) == 1
     flow = TSparse(pos[-1], mot[-1], mask[-1])
     g_state = e_state = state
     for _ in range(2):
         draws = tuple(e.draw(gen, (B,), CAP, dev, dense=False) for e in tp.estimators)
         graphed = tp._run_consumers(g_state, flow, draws, None)
-        eager = tp._consume(e_state.est, e_state.rot, e_state.pos, flow, draws)
-        assert all(torch.equal(a, b) for a, b in zip(_leaves(graphed), _leaves(eager)))
+        eager = tp._consume(flow, e_state.rot, e_state.pos, draws, e_state.est)
+        assert all(torch.equal(a, b) for a, b in zip(leaves(graphed), leaves(eager)))
         g_state = g_state._replace(rot=graphed[0], pos=graphed[1], est=graphed[4])
         e_state = e_state._replace(rot=eager[0], pos=eager[1], est=eager[4])
     props = tp.dyn_props()
@@ -173,4 +173,4 @@ def test_graphed_flow_consumers_match_eager_on_cuda():
         props["detector"]["target_motion"] = target
         _, out = tp.step_from_flow(state, flow, gen, props=props)
         assert bool(out.detection.detected[:2].all()) == (target < 0.1)
-    assert len(tp._graphs) == 2 and tp.eager_runs == 0
+    assert len(tp.graphs.calls) == 2 and tp.eager_runs == 0

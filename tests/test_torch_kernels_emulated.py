@@ -423,7 +423,7 @@ def test_almeida_plain_pipeline_takes_the_plain_version_emulated(emulated, plain
     sparse = field_to_sparse(grid)
     draws = (pipe.estimators[0].draw(torch.Generator().manual_seed(29), (2,), 1200, "cpu"),)
     before = kalm.ransac.launches
-    rot = pipe._consume(state.est, state.rot, state.pos, grid, draws)[2][0]
+    rot = pipe._consume(grid, state.rot, state.pos, draws, state.est)[2][0]
     assert kalm.ransac.launches == before + (0 if plain else 3)
     eidx, w_e = (x.expand((2,) + x.shape) for x in robust.dense_eval_subset(1200, 1000, "cpu"))
     ref = kalm.ransac_plain(ALMEIDA_CAM, sparse, draws[0], eidx, w_e,

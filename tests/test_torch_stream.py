@@ -259,7 +259,7 @@ def test_carries_tile_and_flatten_for_the_graph():
     input list flattens and rebuilds the poses, the draws (a tuple for
     libmv, None for an estimator without) and the carries in order."""
     from ofps_torch.estimators.libmv import GRID, PrevMotion
-    from ofps_torch.parallel import stream
+    from ofps_torch.pipeline import graphs
 
     _, tp = _pipes(("almeida", "libmv"))
     state = tp.init_state(B, H, W)
@@ -269,11 +269,11 @@ def test_carries_tile_and_flatten_for_the_graph():
     assert torch.equal(carry.rot, tq.identity().expand(B, 4))
     draws = tp.estimators[1].draw(torch.Generator().manual_seed(0), (B,), 13500, "cpu")
     tree = (state.rot, state.pos, (None, draws), state.est)
-    leaves = stream._leaves(tree)
+    leaves = graphs.leaves(tree)
     assert len(leaves) == 2 + 2 + 2 + len(PrevMotion._fields)
-    back = stream._rebuild(tree, iter(leaves))
+    back = graphs.rebuild(tree, iter(leaves))
     assert back[2][0] is None and isinstance(back[3][1], PrevMotion) and back[3][0] == ()
-    assert all(a is b for a, b in zip(stream._leaves(back), leaves))
+    assert all(a is b for a, b in zip(graphs.leaves(back), leaves))
 
 
 def test_interop_params():
@@ -349,8 +349,8 @@ def test_graphed_consumers_match_eager_on_cuda(names):
     for _ in range(2):
         draws = tuple(e.draw(gen, (B,), 90 * 150, dev) for e in tp.estimators)
         graphed = tp._run_consumers(g_state, out.grid, draws, None)
-        eager = tp._consume(e_state.est, e_state.rot, e_state.pos, out.grid, draws)
-        assert len(tp._graphs) == 1
+        eager = tp._consume(out.grid, e_state.rot, e_state.pos, draws, e_state.est)
+        assert len(tp.graphs.calls) == 1
         for g, e in zip(graphed[:4], eager[:4]):
             assert all(torch.equal(a, b) for a, b in zip(g, e))
         for g, e in zip(graphed[4], eager[4]):  # the carries
@@ -367,8 +367,8 @@ def test_graphed_consumers_match_eager_on_cuda(names):
         for max_error in (0.004, 0.002):
             props["estimators"][i]["max_error"] = max_error
             graphed = tp._run_consumers(state, out.grid, draws, props)
-            eager = tp._consume(state.est, state.rot, state.pos, out.grid, draws, props)
-            assert len(tp._graphs) == 2
+            eager = tp._consume(out.grid, state.rot, state.pos, draws, state.est, props)
+            assert len(tp.graphs.calls) == 2
             assert torch.equal(graphed[2][i], eager[2][i])
 
 
@@ -398,7 +398,7 @@ def test_almeida_kernel_in_consumers_graph_on_cuda():
     kalm.ransac.launches = 0
     tp, state, out, gen = stepped(False)
     assert kalm.ransac.launches == 6 and tp.graph_replays == 2 and tp.eager_runs == 0
-    (nodes,) = [g.nodes for g in tp._graphs.values()]
+    (nodes,) = [g.nodes for g in tp.graphs.calls.values()]
     draws = tuple(e.draw(gen, (B,), 90 * 150, dev) for e in tp.estimators)
     graphed = tp._run_consumers(state, out.grid, draws, None)
     assert kalm.ransac.launches == 6
@@ -411,10 +411,10 @@ def test_almeida_kernel_in_consumers_graph_on_cuda():
 
     tp_plain = stepped(True)[0]
     assert kalm.ransac.launches == 9  # the one direct call above
-    eager = tp_plain._consume(state.est, state.rot, state.pos, out.grid, draws)
+    eager = tp_plain._consume(out.grid, state.rot, state.pos, draws, state.est)
     assert kalm.ransac.launches == 9
     for g, e in zip(graphed[2], eager[2]):
         assert tq.angle_to(g.double(), e.double()).max().item() <= 1e-6
     assert torch.allclose(graphed[2][0], ref[0], rtol=0, atol=1e-6)
-    (plain_nodes,) = [g.nodes for g in tp_plain._graphs.values()]
+    (plain_nodes,) = [g.nodes for g in tp_plain.graphs.calls.values()]
     assert plain_nodes - nodes >= 17000
