@@ -17,15 +17,21 @@ Phases, each printing its own line; any failure exits non-zero:
    level's refine (``median_in``), so its cases are the serving step's four
    median-taking refines, held against the plain median then the plain
    refine, and timed beside the same refines without it.  Almeida's
-   RANSAC kernels at B=8 and B=32, and multiview's at codec all4's shapes
-   (B=8, masked and dense), the latter bit for bit;
+   RANSAC kernels at B=8 and B=32, multiview's at codec all4's shapes
+   (B=8, masked and dense), the latter bit for bit, and homography's at
+   the four cells' shapes (B=8 and B=32, dense and masked: the same winner
+   and inlier count, each family and its |t| within 1e-6 rad on a rotating
+   camera, within ``homography_tolerance`` on a translating plane, the pick
+   the first minimum of the kernels' own norms);
 4. slice: ``StreamPipeline`` (almeida + homography + block_motion, the
    serving configuration of ``bench.py``) at 1080p, B=4, 8 frames of a
    textured scene moving 3 px per frame with a patch moving 12 px per
    frame; checks that every kernel ran as often per step as the pyramid
    needs, the shift is recovered, both estimators' poses are finite, the
    detector reports the patch, and the plain path agrees (homography's
-   rotation family by family: see ``homography_vs_plain``);
+   rotation family by family: see ``homography_vs_plain``); almeida's and
+   homography's kernels run once a replay of the consumers' graph (here,
+   in all4 and in the codec phase);
    all4: ``bench.py``'s all-estimator configuration (almeida + homography
    + multiview + libmv + block_motion) at 1080p, B=8, 8 frames of the same
    scene; checks the flow kernels' launches per step, every pose finite on
@@ -802,6 +808,137 @@ def multiview_cases(torch, device):
     return cases
 
 
+# Homography's robust fit has no TPU kernel either (XLA); its three hand
+# kernels stand in for the plain robust_fit + refit + polish + decomposition.
+# Against the plain version on the card: the same winner and final inlier
+# count in every stream; each family's rotation and translation norm
+# within HOMOGRAPHY_TOL of the plain one's on a rotating camera (only the
+# refit's sums take another order), within homography_tolerance on a
+# translating plane; the rotation the first minimum of the kernels' own
+# norms.
+REPLACES["homography_ransac"] = (
+    "csrc/homography_ransac.cu",
+    "none: ofps_tpu/estimators/homography.py robust_fit + dlt/gn refit + decomposition (XLA)")
+HOMOGRAPHY_TOL = 1e-6
+HOMOGRAPHY_LAUNCHES = 3  # a call: fit, score, refit
+
+
+def homography_cost(batch: int, h: int, n: int, s: int, p: int, f: int, passes: int = 13):
+    """(bytes, ops) of one homography_ransac call: per stream the draws (4
+    int64 indices and 4 points a hypothesis), the eval subset and all
+    points read once (a stream's points fit in the shared memory of the
+    refit's cluster), the final inliers written; float32 operations ~3,800
+    a 4-point DLT, 14 a transfer test (prescore twice, finalists, each of
+    the plain refit's ``passes`` over the points up to twice), ~60 more a
+    point of a refit pass's sums, a square root or division counted as
+    one."""
+    nbytes = batch * (4 * 28 * h + 28 * s + 20 * n + 4 * n)
+    ops = batch * (3800 * h + 14 * (2 * h * p + f * s) + passes * (2 * 14 + 60) * n)
+    return nbytes, ops
+
+
+def homography_tolerance(torch, h, camera):
+    """Per stream of refined homographies ``h`` (B, 3, 3) the angle (rad)
+    within which two float32 decompositions one rounding apart agree:
+    HOMOGRAPHY_TOL on the pure-rotation branch (s1^2 - s3^2 < 1e-4), and
+    there plus 2 float32 epsilons over min(s1^2 - 1, 1 - s3^2) elsewhere,
+    the distance between the eigenvalues whose eigenvectors build the
+    families (``tests/homography_checks.py``)."""
+    k = camera.intrinsics().double()
+    s = torch.linalg.svdvals(torch.linalg.inv(k) @ h.double().cpu() @ k)
+    s1sq, s3sq = (s[:, 0] / s[:, 1]) ** 2, (s[:, 2] / s[:, 1]) ** 2
+    apart = torch.minimum(s1sq - 1, 1 - s3sq).clamp(min=1e-30)
+    eps = torch.finfo(torch.float32).eps
+    return torch.where(s1sq - s3sq < 1e-4, HOMOGRAPHY_TOL, HOMOGRAPHY_TOL + 2 * eps / apart)
+
+
+def plane_grid(torch, batch: int, seed: int):
+    """:func:`rotation_grid`'s fixture with the camera also translating by
+    0.03 over a plane (H = K (R + t n^T) K^-1 on the lattice, t mostly
+    across the plane's normal n), far from the decomposition's
+    pure-rotation branch: the grids (batch, 84, 150, 2), 20% of the vectors
+    replaced by N(0, 0.01) noise, and the masked path's weights."""
+    from ofps_torch.core import quat
+    from ofps_torch.core.camera import StandardCamera
+    from ofps_torch.core.motion import field_to_sparse, grid_size_for
+
+    gw, gh = grid_size_for(W, H)
+    k = StandardCamera.create(W / H, 60.0).intrinsics().double()
+    g = torch.Generator().manual_seed(seed)
+    pos = field_to_sparse(torch.zeros((gh, gw, 2))).pos.double()
+    axis = torch.randn((batch, 3), generator=g)
+    axis = axis / torch.linalg.vector_norm(axis, dim=-1, keepdim=True)
+    half = torch.deg2rad(0.3 + 0.3 * torch.rand((batch, 1), generator=g)) / 2
+    r = quat.to_matrix3(torch.cat([torch.cos(half), torch.sin(half) * axis], dim=-1)).double()
+    n = torch.cat([0.3 * torch.randn((batch, 2), generator=g), torch.ones((batch, 1))], -1)
+    n = (n / torch.linalg.vector_norm(n, dim=-1, keepdim=True)).double()
+    t = torch.randn((batch, 3), generator=g).double()
+    t = t - 0.8 * (t * n).sum(-1, keepdim=True) * n
+    t = 0.03 * t / torch.linalg.vector_norm(t, dim=-1, keepdim=True)
+    hs = k @ (r + t[:, :, None] * n[:, None, :]) @ torch.linalg.inv(k)
+    x2 = torch.cat([pos, torch.ones_like(pos[:, :1])], -1) @ hs.transpose(-2, -1)
+    motion = (x2[..., :2] / x2[..., 2:] - pos).float()
+    bad = torch.rand(motion.shape[:-1], generator=g) < 0.2
+    noise = 0.01 * torch.randn(motion.shape, generator=g)
+    motion = torch.where(bad[..., None], noise, motion)
+    mask = (torch.rand((batch, gh * gw), generator=g) >= 1 / 3).float()
+    return motion.reshape(batch, gh, gw, 2).contiguous(), mask
+
+
+def homography_cases(torch, device, plane: bool = False):
+    """:class:`Case` s of ``kernels/homography.ransac`` against
+    ``estimators/homography.ransac_plain`` at the four cells' shapes: the
+    frames cells' dense 84x150 grid at B=8 and B=32 and the codec cells'
+    masked rows (CODEC_CAPACITY points: the lattice's with a third invalid,
+    then invalid rows) at B=32 and B=8, on :func:`rotation_grid`'s fixture
+    (``plane``: :func:`plane_grid`'s), the threshold a 0-d tensor as the
+    consumers' graph takes it."""
+    from ofps_torch.core.camera import StandardCamera
+    from ofps_torch.core.motion import SparseFlow, field_to_sparse
+    from ofps_torch.estimators import homography as he
+    from ofps_torch.kernels import homography as kh
+
+    cam = StandardCamera.create(W / H, 60.0)
+    est = he.make_homography()
+    params, h = est.params, he.hypothesis_count(est.params)
+    thr = torch.tensor(params.max_error, device=device)
+    cases = []
+    for b, masked in ((8, False), (32, False), (32, True), (8, True)):
+        rgrid, mask = (plane_grid(torch, b, SEED + 60 + b) if plane else
+                       rotation_grid(torch, b, SEED + 50 + b)[::2])
+        lattice = field_to_sparse(rgrid)
+        pad = CODEC_CAPACITY - mask.shape[-1]
+        flow = lattice if not masked else SparseFlow(*(
+            torch.cat([x, x.new_zeros(x.shape[:1] + (pad,) + x.shape[2:])], dim=1)
+            for x in (lattice.pos, lattice.motion, mask)))
+        flow = SparseFlow(*(x.to(device) for x in flow))
+        n = flow.mask.shape[-1]
+        gen = torch.Generator(device=device).manual_seed(SEED + 51 + b)
+        idx = est.draw(gen, (b,), n, device, dense=not masked)
+        args = (flow, cam, params, h, thr, not masked, idx)
+        if not kh.on_kernels(params, flow.pos, h):
+            fail(f"homography_cases: B={b} N={n} would not run on the kernels")
+        case = Case(lambda a=args: kh.ransac(*a), lambda a=args: he.ransac_plain(*a),
+                    ("homography", cam, plane), (b, n),
+                    homography_cost(b, h, n, min(params.eval_cap, n), params.prescore_cap,
+                                    params.finalists))
+        case.note = f"B={b} {'masked' if masked else 'dense'}{' plane' if plane else ''}"
+        cases.append(case)
+    return cases
+
+
+def family_gap(torch, got, ref):
+    """Per stream the angle (rad) between ``got``'s two family rotations
+    (B, 2, 4) and ``ref``'s, family by family: the larger of the two
+    families' angles, in the pairing (as they stand or swapped) where it is
+    smaller, since the two versions may order the families either way."""
+    from ofps_torch.core import quat
+
+    d = quat.angle_to(got[:, :, None, :].double(), ref[:, None, :, :].double())
+    return torch.minimum(torch.maximum(d[:, 0, 0], d[:, 1, 1]),
+                         torch.maximum(d[:, 0, 1], d[:, 1, 0]))
+
+
 def replay_kernels(torch, pipe, state, field, draws, props=None, part="almeida_"):
     """The kernels whose names hold ``part`` in one replay of ``pipe``'s
     captured consumers' graph, from ``torch.profiler`` (CUPTI reports a
@@ -851,6 +988,18 @@ def compare(torch, got, ref, kind):
             off |= ~same.reshape(ge.shape[0], -1).all(-1)
         gap = (ge - re).abs().max().item()
         return gap, off.float().mean().item(), not bool(off.any())
+    if kind[0] == "homography":
+        tol = homography_tolerance(torch, ref.h, kind[1]) if kind[2] else HOMOGRAPHY_TOL
+        gap = family_gap(torch, got.quats, ref.quats).cpu()
+        tgap = (got.tnorm.double().sqrt() - ref.tnorm.double().sqrt()).abs().amax(-1).cpu()
+        first = torch.argmin(got.tnorm, dim=-1)
+        picked = torch.equal(got.rot, got.quats[torch.arange(first.shape[0], device=first.device),
+                                                first])
+        off = ((got.fit.best != ref.fit.best) | (got.fit.score != ref.fit.score)).float()
+        finite = bool(torch.isfinite(got.rot).all())
+        held = bool((gap <= tol).all() and (tgap <= tol).all())
+        return (gap.max().item(), off.mean().item(),
+                not bool(off.any()) and held and picked and finite)
     if kind[0] == "almeida":
         from ofps_torch.core import quat
 
@@ -898,10 +1047,11 @@ def make_pipeline(device, plain: bool, estimators=ESTIMATORS, fov_y: float = 60.
 
 def launch_counters(kfr, kfs, kwarp, kalm):
     """Per kernel: the (wrapper, attribute) launch counts that it sums.
-    The 3x3 median is counted where a refine launch takes it; almeida's
-    and multiview's kernels are launched from the host where a consumers'
-    graph is captured (twice a capture: its warm-up and the captured call)
+    The 3x3 median is counted where a refine launch takes it; almeida's,
+    multiview's and homography's kernels are launched from the host where a
+    consumers' graph is captured (twice a capture: its warm-up and the captured call)
     or run eagerly, and replay inside the graph."""
+    from ofps_torch.kernels import homography as kh
     from ofps_torch.kernels import multiview as kmv
 
     return {
@@ -914,6 +1064,7 @@ def launch_counters(kfr, kfs, kwarp, kalm):
         "warp_bilinear": [(kwarp.warp_bilinear, "launches")],
         "almeida_ransac": [(kalm.ransac, "launches")],
         "multiview_ransac": [(kmv.ransac, "launches")],
+        "homography_ransac": [(kh.ransac, "launches")],
     }
 
 
@@ -978,9 +1129,10 @@ def homography_vs_plain(torch, pipe_p, outs, outs_p, draws):
     est = pipe_p.estimators[i]
     near_err, flips, picked_err = 0.0, 0, 0.0
     for o, p, d in zip(outs, outs_p, draws):
-        h = he.refined_homography(None, est.params, field_to_sparse(p.grid), pipe_p.camera,
-                                  dense=True, fit_idx=d[i])
-        quats, tnorm = he.rotation_candidates(h, pipe_p.camera)  # (B, 2, 4), (B, 2)
+        fit = he.ransac_plain(field_to_sparse(p.grid), pipe_p.camera, est.params,
+                              he.hypothesis_count(est.params), est.params.max_error, dense=True,
+                              idx=d[i])
+        quats, tnorm = fit.quats, fit.tnorm  # (B, 2, 4), (B, 2)
         near = (quats - o.delta_rot[i][:, None, :]).abs().amax(dim=-1).min(dim=-1)
         near_err = max(near_err, near.values.max().item())
         flips += int((near.indices != torch.argmin(tnorm, dim=-1)).sum().item())
@@ -1082,6 +1234,13 @@ def run_all4(torch, device, counters):
     if mv_replay not in (None, multiview_launches()):
         fail("all4: multiview's kernels did not run once a replay, in the graph")
     launches["multiview_ransac"] = mv_replay if mv_replay is not None else mv_host
+    hg_replay = replay_kernels(torch, pipe, g_state, grid, tuple(
+        e.draw(gen, (batch,), n, device) for e in pipe.estimators), part="::hg_")
+    if (counts["homography_ransac"] != 2 * HOMOGRAPHY_LAUNCHES * len(pipe.graphs.calls)
+            or hg_replay not in (None, HOMOGRAPHY_LAUNCHES)):
+        fail(f"all4: homography's kernels: {counts['homography_ransac']} host launches for "
+             f"{len(pipe.graphs.calls)} capture(s), {hg_replay} in a replay")
+    launches["homography_ransac"] = hg_replay if hg_replay is not None else HOMOGRAPHY_LAUNCHES
     if not (g_share <= 1e-2 and all(n <= EPI_STEP_OFF[k] for k, n in off.items())):
         fail("all4: kernel path and plain path disagree")
     return launches
@@ -1274,8 +1433,10 @@ def run_codec(torch, device, counters, smi):
             fail("codec: wrong steps or vector counts, a non-finite pose, or a frozen stream moved")
         if res.graph_replays != res.frames or res.eager_runs != 0:
             fail("codec: the consumers did not replay as one CUDA graph per step")
-        if captures < 1 or launches["almeida_ransac"] != 2 * ALMEIDA_LAUNCHES * captures:
-            fail("codec: almeida's kernels were launched outside the graphs' captures")
+        if captures < 1 or any(launches[k] != 2 * n * captures for k, n in (
+                ("almeida_ransac", ALMEIDA_LAUNCHES), ("homography_ransac", HOMOGRAPHY_LAUNCHES))):
+            fail("codec: almeida's or homography's kernels were launched outside the graphs' "
+                 "captures")
         if max(max(v) for v in gt_deg.values()) > CODEC_GT_DEG:
             fail("codec: an estimator misses the ground truth")
 
@@ -1345,6 +1506,8 @@ def run_codec(torch, device, counters, smi):
     # scalars): ALMEIDA_LAUNCHES.
     launches["almeida_ransac"] = replay_kernels(torch, pipe4, g_state, flows[5], draws,
                                                 live.props)
+    launches["homography_ransac"] = replay_kernels(torch, pipe4, g_state, flows[5], draws,
+                                                   live.props, part="::hg_")
     before = live.step(flows[5], gen)[1].detection.detected.tolist()
     graphs = len(pipe4.graphs.calls)
     applied = live.set_property("detector", "target_motion", 0.1)
@@ -1354,9 +1517,12 @@ def run_codec(torch, device, counters, smi):
           f"(carry through the graph) max |diff| {g_err:.3e}; target_motion 0.003 -> 0.1: "
           f"applied={applied}, detected {before} -> {after}, graphs {graphs} -> "
           f"{len(pipe4.graphs.calls)}, eager runs {pipe4.eager_runs}; almeida kernels in a "
-          f"replay {launches['almeida_ransac']} (torch.profiler)")
+          f"replay {launches['almeida_ransac']}, homography kernels "
+          f"{launches['homography_ransac']} (torch.profiler)")
     if launches["almeida_ransac"] not in (None, ALMEIDA_LAUNCHES):
         fail("codec: almeida's kernels did not run once a replay")
+    if launches["homography_ransac"] not in (None, HOMOGRAPHY_LAUNCHES):
+        fail(f"codec: {launches['homography_ransac']} homography kernels in a replay")
     if g_err > GRAPH_TOL or min(has) < 1.0:
         fail("codec: the consumers' graph and eager calls disagree, or libmv's chain not set")
     if not (applied and any(before) and not any(after) and graphs == len(pipe4.graphs.calls) == 1
@@ -1813,8 +1979,9 @@ def codec_homography_err(torch, pipe, flows, seed: int, deltas):
         b = flow.mask.shape[0]
         draws = [e.draw(gen, (b,), flow.capacity, pipe.device, dense=False)
                  for e in pipe.estimators]
-        h = he.refined_homography(None, est.params, flow, pipe.camera, fit_idx=draws[i])
-        quats, tnorm = he.rotation_candidates(h, pipe.camera)
+        fit = he.ransac_plain(flow, pipe.camera, est.params, he.hypothesis_count(est.params),
+                              est.params.max_error, idx=draws[i])
+        quats, tnorm = fit.quats, fit.tnorm
         d = torch.from_numpy(delta).to(pipe.device)
         near = (quats - d[:, None, :]).abs().amax(dim=-1).min(dim=-1)
         near_err = max(near_err, near.values.max().item())
@@ -2546,6 +2713,7 @@ def main() -> None:
     cases = kernel_cases(torch, device, batch)
     cases["almeida_ransac"] = almeida_cases(torch, device)
     cases["multiview_ransac"] = multiview_cases(torch, device)
+    cases["homography_ransac"] = homography_cases(torch, device)
     results = {}
     for name, items in cases.items():
         worst, share, ok, errs = 0.0, 0.0, True, []
@@ -2564,6 +2732,16 @@ def main() -> None:
               + (f" per case {[f'{e:.3e}' for e in errs]}" if len(items) > 1 else ""))
         if not ok:
             fail(f"{name} disagrees with its plain version")
+    # Homography away from the pure-rotation branch: a translating plane,
+    # whose two decomposition families differ.
+    for c in homography_cases(torch, device, plane=True):
+        got, ref = c.kcall(), c.pcall()
+        torch.cuda.synchronize()
+        e, s, good = compare(torch, got, ref, c.kind)
+        phase("kernels", f"homography_ransac {c.note} {c.shape}: family gap {e:.3e} rad, "
+              f"mismatch_share={s:.2e} {'ok' if good else 'FAILED'}")
+        if not good:
+            fail("homography_ransac disagrees with its plain version on a translating plane")
     for c in cases["warp_bilinear"]:
         phase("kernels", f"warp_bilinear {c.shape}: grid_sample (library) vs plain "
               f"max |diff| {(c.library() - c.pcall()).abs().max().item():.3e}")
@@ -2601,6 +2779,15 @@ def main() -> None:
             or pipe.graph_replays != frames.shape[0] + 1
             or launches["almeida_ransac"] not in (None, ALMEIDA_LAUNCHES)):
         fail("serving_slice: almeida's kernels did not run once a replay, in the graph")
+    launches["homography_ransac"] = replay_kernels(
+        torch, pipe, state, last.grid, tuple(e.draw(gen, (batch,), n_last, device)
+                                             for e in pipe.estimators), part="::hg_")
+    phase("slice", f"homography_ransac: {counts['homography_ransac']} host launches for "
+          f"{len(pipe.graphs.calls)} capture(s); {launches['homography_ransac']} homography "
+          f"kernels in a replay (torch.profiler)")
+    if (counts["homography_ransac"] != 2 * HOMOGRAPHY_LAUNCHES * len(pipe.graphs.calls)
+            or launches["homography_ransac"] not in (None, HOMOGRAPHY_LAUNCHES)):
+        fail("serving_slice: homography's kernels did not run once a replay, in the graph")
     u_px = last.grid[:, 8:-8, 8:-8, 0] * W
     med = u_px.median().item()
     rot_ok = all(bool(torch.isfinite(r).all()) for o in outs for r in o.rot + o.delta_rot)

@@ -29,8 +29,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("flow_refine.cu", "flow_refine_small.cu", "warp.cu", "almeida_ransac.cu",
-           "multiview_ransac.cu")
-HEADERS = ("level_refine.cuh",)
+           "multiview_ransac.cu", "homography_ransac.cu")
+HEADERS = ("level_refine.cuh", "ransac_algebra.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -63,6 +63,8 @@ _SIGNATURES = {
     "ofps_multiview_eight_point": [_P] * 5 + [_I, _P],
     # &PointArgs (kernels/multiview.py _PointArgs), stage, stream
     "ofps_multiview_points": [_P, _I, _P],
+    # &Args (kernels/homography.py _Args), stream
+    "ofps_homography_ransac": [_P, _P],
 }
 
 

@@ -11,9 +11,12 @@ prints the total and the split by the innermost of its stages
 (``ops/solve``, ``ops/epipolar``, ``ops/five_point``, ``ops/robust``, libmv
 helpers and almeida's ``ransac_plain``; the rest is the stage code of
 ``robust_fit``, the estimator and its other ops).  libmv runs from the
-empty carry.  Almeida's count is its CPU path, the plain version; on CUDA
-``ransac_plain``'s operations are the hand kernels' three launches
-(``kernels/almeida.ransac``), so its line also gives the CUDA count.
+empty carry.  Almeida's and homography's counts are their CPU paths, the
+plain versions; on CUDA the operations inside their ``ransac_plain`` are
+the hand kernels' three launches (``kernels/almeida.ransac``,
+``kernels/homography.ransac``; on the dense path nothing else of the
+kernel wrapper dispatches an operation), so their lines also give the
+CUDA count.
 """
 
 from __future__ import annotations
@@ -39,8 +42,9 @@ STAGES = (
     "rotation_only_fallback", "recover_pose_from_essential", "sampson_error",
     "rasterize_prev", "find_nearest", "robust_fit", "ransac_plain",
 )
-# Launches of kernels/almeida.ransac in place of ransac_plain on CUDA.
-ALMEIDA_KERNEL_LAUNCHES = 3
+# Launches of the kernels in place of an estimator's ransac_plain on CUDA
+# (kernels/almeida.ransac, kernels/homography.ransac).
+KERNEL_LAUNCHES = {"almeida": 3, "homography": 3}
 
 
 def main() -> None:
@@ -60,16 +64,20 @@ def main() -> None:
         def __init__(self):
             super().__init__()
             self.by_stage = collections.Counter()
+            self.in_plain = 0  # operations anywhere inside a ransac_plain
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             if func.overloadpacket.__name__ not in VIEWS:
-                frame, stage = sys._getframe(1), "stage code"
+                frame, stage = sys._getframe(1), None
                 while frame is not None:
-                    if frame.f_code.co_name in STAGES:
-                        stage = frame.f_code.co_name
+                    name = frame.f_code.co_name
+                    if stage is None and name in STAGES:
+                        stage = name
+                    if name == "ransac_plain":
+                        self.in_plain += 1
                         break
                     frame = frame.f_back
-                self.by_stage[stage] += 1
+                self.by_stage[stage or "stage code"] += 1
             return func(*args, **(kwargs or {}))
 
     cam = StandardCamera.create(1920 / 1080, 60.0)
@@ -85,10 +93,11 @@ def main() -> None:
             est.estimate(carry, flow, cam, dense=True, fit_idx=draws)
         total = sum(count.by_stage.values())
         line = f"{name} B={args.batch}: {total} operations"
-        if name == "almeida":
-            cuda = total - count.by_stage["ransac_plain"] + ALMEIDA_KERNEL_LAUNCHES
-            line += (f" on the CPU's plain path, {cuda} on CUDA ({ALMEIDA_KERNEL_LAUNCHES} "
-                     f"kernel launches for ransac_plain's {count.by_stage['ransac_plain']})")
+        if name in KERNEL_LAUNCHES:
+            k = KERNEL_LAUNCHES[name]
+            cuda = total - count.in_plain + k
+            line += (f" on the CPU's plain path, {cuda} on CUDA ({k} kernel launches for "
+                     f"ransac_plain's {count.in_plain})")
         print(f"{line}: {dict(count.by_stage.most_common())}", flush=True)
 
 

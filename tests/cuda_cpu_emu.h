@@ -149,6 +149,16 @@ inline unsigned __ballot_sync(unsigned, int pred) {
   return out;
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+// The warp's sum in one exchange (the lanes' values written, then read).
+inline unsigned __reduce_add_sync(unsigned, unsigned v) {
+  const int warp = emu_tid / 32;
+  emu_lanes[warp][emu_tid % 32] = v;
+  __syncwarp();
+  unsigned sum = 0;
+  for (int i = 0; i < 32; ++i) sum += (unsigned)emu_lanes[warp][i];
+  __syncwarp();
+  return sum;
+}
 
 inline void emu_fiber_entry() {
   emu_body();

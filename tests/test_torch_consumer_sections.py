@@ -14,7 +14,8 @@ of the consumers' sections.
 * On the card (``cuda``, skips without one): the sections of a captured
   all-four graph give device times on every replay that are positive and
   sum to no more than the replay's, per-section node counts that sum to
-  no more than the graph's (multiview's at most 1,500, on its kernels),
+  no more than the graph's (multiview's at most 1,500 and homography's at
+  most 80, on their kernels),
   and outputs identical to a graph captured without the sections; and
   multiview's kernels are its plain version bit for bit at the codec all4
   cell's shapes.
@@ -143,6 +144,10 @@ def test_graph_sections_on_the_card():
     # Multiview's RANSAC runs on its kernels (5,516 nodes before them at
     # B=8); its section keeps the LO rounds' sums and the pose stages.
     assert by_section["multiview"] <= 1500, by_section
+    # Homography's fit, refit and decomposition run on its three kernels
+    # (1,972 nodes before them at B=8); the masked draws' mapping and eval
+    # subset and the estimator's guard stay PyTorch's.
+    assert by_section["homography"] <= 80, by_section
     perf.resolve(wait=True)
     for step in range(4):
         spans = perf.spans[step]

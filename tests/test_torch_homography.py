@@ -383,8 +383,9 @@ def _j_estimate(key, pos, mot, mask):
 def _candidates(est, flow, idx):
     """The port's two family rotations (..., 2, 4) and squared |t| (..., 2)
     of the refined homography of ``flow`` with draws ``idx``."""
-    h = the.refined_homography(None, est.params, flow, TCAM, dense=True, fit_idx=idx)
-    return the.rotation_candidates(h, TCAM)
+    fit = the.ransac_plain(flow, TCAM, est.params, the.hypothesis_count(est.params),
+                           est.params.max_error, dense=True, idx=idx)
+    return fit.quats, fit.tnorm
 
 
 @pytest.mark.parametrize("field", ["rotation", "plane"])

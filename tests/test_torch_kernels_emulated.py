@@ -14,7 +14,12 @@ plain version's winner and inlier count exactly and its rotation within
 1e-6 rad: the kernels follow PyTorch's operations on the card (a multiply
 by the reciprocal where it divides by a host scalar, the card's order of
 a 3-point sum), the CPU plain version divides and sums in its own order,
-and the refit's sums take another order.  The kernels multiply
+and the refit's sums take another order.  Homography's kernels, given
+their own candidates (which copy the card's arithmetic, not the CPU's),
+give robust_fit's prescore medians and counts, adapted cut, finalists and
+winner exactly, and end to end the plain version's winner, final inliers
+and refused LO rounds, each decomposition family within 1e-6 rad; on the
+card (``-m cuda``) the candidates are held bit for bit too.  The kernels multiply
 the box sum by 1/win^2 (as PyTorch does on the card), where the CPU plain
 version divides: near-ties may flip.  What the CUDA compiler makes of the
 sources is tested on the card only (``-m cuda``).
@@ -42,6 +47,7 @@ from ofps_torch.kernels import flow_refine_small as kfs
 from ofps_torch.kernels import warp as kwarp
 from ofps_torch.ops import robust
 from ofps_torch.ops.geometry_uv import delta_planes, qmat
+from homography_checks import assert_fit_matches, family_gap
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 EMU_HEADER = Path(__file__).resolve().parent / "cuda_cpu_emu.h"
@@ -536,3 +542,305 @@ def test_multiview_ransac_emulated(emulated):
     assert torch.equal(lo[0], err2 * inl) and torch.equal(lo[1], inl2)
     assert torch.equal(lo[2], err2 * inl2)
     assert kmv.ransac.launches == before + 2 + 4 + 3 + 1
+
+
+# -- homography's RANSAC -----------------------------------------------------
+
+HOMOGRAPHY_CAM = StandardCamera.create(16 / 9, 90.0)
+
+
+def _homography_flow(seed, batch, n, valid=1.0, noise=1e-4, outliers=0.1, lattice=None,
+                     plane=False):
+    """(B, n) correspondences of a camera rotating by ~0.3 deg a stream (H =
+    K R K^-1), with noise, a share of outliers and, for ``valid`` < 1, a
+    share of the points masked; ``lattice`` (gh, gw) puts the points on the
+    dense path's grid (positions shared by the streams, as a stride-0
+    batch).  ``plane``: the camera also translates by 0.03 over a plane
+    (H = K (R + t n^T) K^-1), far from the decomposition's pure-rotation
+    branch, so its two families differ."""
+    from ofps_torch.core import quat
+
+    rng = np.random.default_rng(seed)
+    if lattice is None:
+        pos = rng.uniform(0.02, 0.98, (batch, n, 2)).astype(np.float32)
+    else:
+        gh, gw = lattice
+        ys, xs = np.meshgrid(np.arange(gh) / gh, np.arange(gw) / gw, indexing="ij")
+        pos = np.broadcast_to(np.stack([xs.ravel(), ys.ravel()], -1).astype(np.float32),
+                              (batch, gh * gw, 2))
+        n = gh * gw
+    k = HOMOGRAPHY_CAM.intrinsics().double().numpy()
+    mot = np.empty((batch, n, 2), np.float32)
+    for s in range(batch):
+        q = np.r_[1.0, rng.normal(0, 0.003, 3)]
+        r = quat.to_matrix3(torch.tensor(q / np.linalg.norm(q))).numpy()
+        if plane:  # t mostly across n, so s1^2 - 1 and 1 - s3^2 are both ~|t|
+            normal = np.r_[rng.normal(0, 0.3, 2), 1.0]
+            normal /= np.linalg.norm(normal)
+            t = rng.normal(0, 1, 3)
+            t -= 0.8 * (t @ normal) * normal
+            r = r + np.outer(0.03 * t / np.linalg.norm(t), normal)
+        x2 = np.c_[pos[s], np.ones(n)] @ (k @ r @ np.linalg.inv(k)).T
+        mot[s] = x2[:, :2] / x2[:, 2:] - pos[s] + rng.normal(0, noise, (n, 2))
+        bad = rng.uniform(size=n) < outliers
+        mot[s][bad] = rng.uniform(-0.02, 0.02, (int(bad.sum()), 2))
+    mask = (rng.uniform(size=(batch, n)) < valid).astype(np.float32)
+    pos_t = torch.from_numpy(pos[:1].copy()).expand(batch, -1, -1) if lattice else _t(pos)
+    return SparseFlow(pos_t, _t(mot), _t(mask))
+
+
+def _homography_draws(flow, seed, dense, hyps=None):
+    from ofps_torch.estimators import homography as he
+
+    est = he.make_homography()
+    gen = torch.Generator().manual_seed(seed)
+    b, n = flow.mask.shape
+    return est.draw(gen, (b,), n, "cpu", dense=dense) if hyps is None else robust.draw(
+        gen, (b,), n, hyps, 4, "cpu", dense)
+
+
+def _homography_selection(models, valid, flow, params, thr, dense):
+    """robust_fit's prescore and scoring on the candidates ``models`` (B, H,
+    3, 3) with ``valid``: the adapted cut, the finalists and the winner."""
+    from ofps_torch.ops.homography import homography_transfer_error as err_fn
+
+    b, n = flow.mask.shape
+    dev = flow.mask.device
+    x1, x2, w = flow.pos, flow.pos + flow.motion, flow.mask
+    if dense:
+        eidx, we = (x.expand((b,) + x.shape) for x in robust.dense_eval_subset(
+            n, params.eval_cap, str(dev)))
+    else:
+        eidx, we = robust.eval_subset(w, params.eval_cap)
+    x1e, x2e = robust._take_points(x1, eidx), robust._take_points(x2, eidx)
+    stride = eidx.shape[-1] // params.prescore_cap
+    pidx = torch.arange(params.prescore_cap, device=dev) * stride
+    errs = err_fn(models, x1e[:, None, pidx], x2e[:, None, pidx])
+    wp = we[:, pidx]
+    med = robust.masked_median(errs, wp[:, None])
+    t = torch.as_tensor(thr, dtype=torch.float32, device=dev)
+    sigma_k = 2.5 * 1.4826 * (1.0 + 5.0 / (torch.clamp(torch.sum(we, dim=-1), min=5.0) - 4))
+    thr2 = torch.maximum(t * t, torch.square(sigma_k) * torch.clamp(
+        torch.min(torch.where(valid, med, 1e30), dim=-1).values, min=0.0))
+    pre = torch.where(valid, ((errs <= thr2[:, None, None]) & (wp[:, None] > 0.5)).sum(-1), -1)
+    cand = torch.sort(pre.float(), dim=-1, descending=True, stable=True).indices[:, :32]
+    fin = robust._take(models, cand)
+    ok = (err_fn(fin, x1e[:, None], x2e[:, None]) <= thr2[:, None, None]) & (we[:, None] > 0.5)
+    score = torch.where(robust._take(valid, cand), ok.sum(-1), -1)
+    best = robust._take(cand, torch.argmax(score, dim=-1)[:, None])[:, 0]
+    return thr2, cand, best, med, pre
+
+
+def _check_homography(flow, idx, dense, thr=0.001, raised=None, plane=False):
+    """The kernels against the plain version on ``flow`` with draws ``idx``:
+    given the kernels' own candidates, the prescore medians and counts, the
+    adapted cut, the finalists and the winner are robust_fit's exactly (the
+    candidates copy the card's order of PyTorch's sums and products, not the
+    CPU's: they are held to the plain ones within float32 rounding); end to
+    end, the same winner and final inlier count, and the families, their
+    translation norms and the pick as ``homography_checks`` holds them
+    (within 1e-6 rad; ``plane``: within ``family_tolerance``).
+    ``raised``: whether the adaptive cut must exceed thr^2 in every
+    stream."""
+    from ofps_torch.estimators import homography as he
+    from ofps_torch.kernels import homography as kh
+    from ofps_torch.ops.homography import dlt_homography
+
+    params = he.HomographyParams()
+    hyps = idx.shape[-2]
+    before = kh.ransac.launches
+    out = kh._launch(flow, HOMOGRAPHY_CAM, params, hyps, thr, dense, idx, None)
+    assert kh.ransac.launches == before + kh.LAUNCHES
+    models, valid = out["models"], out["valid"].bool()
+    ii = robust.as_indices(idx, flow.mask)
+    plain = dlt_homography(*(robust._take_points(x, ii) for x in (
+        flow.pos, flow.pos + flow.motion)), robust._take_points(flow.mask[..., None], ii)[..., 0])
+    finite = torch.isfinite(plain).flatten(-2).all(-1)
+    assert torch.equal(valid, finite)  # the same samples fail
+    # A minimal sample's null vector moves with the last bits of its sums
+    # (far, for a sample near a degenerate one): most stay close.
+    rel = ((models - plain).abs().amax((-2, -1)) / plain.abs().amax((-2, -1)))[finite]
+    assert rel.median().item() < 1e-4
+    thr2, cand, best, med, pre = _homography_selection(models, valid, flow, params, thr, dense)
+    assert bool(((med == out["med"]) | (med.isnan() & out["med"].isnan())).all())
+    assert torch.equal(pre.int(), out["pre"])
+    assert torch.equal(thr2, out["thr2"]) and torch.equal(cand, out["cand"])
+    assert torch.equal(best, out["best"])
+    if raised is not None:
+        assert bool((thr2 > np.float32(thr) ** 2).all()) == raised
+    got = kh.fit_of(out, flow.mask.shape[:-1])  # what ransac returns from this launch
+    ref = he.ransac_plain(flow, HOMOGRAPHY_CAM, params, hyps, thr, dense, idx)
+    assert torch.equal(got.fit.best, ref.fit.best)
+    assert torch.equal(got.fit.score, ref.fit.score)
+    assert torch.equal(got.fit.inliers, ref.fit.inliers)
+    # The same LO rounds refused: the LO model is then still the winner.
+    b = torch.arange(flow.mask.shape[0])
+    refused = (got.fit.model == models[b, got.fit.best]).flatten(1).all(-1)
+    assert torch.equal(refused, (ref.fit.model == plain[b, ref.fit.best]).flatten(1).all(-1))
+    # A stream with fewer than 4 valid points fits repeats of them (the
+    # estimator gives identity there): its rotation is not held.
+    held = flow.mask.sum(-1) >= 4
+    assert_fit_matches(got, ref, held, HOMOGRAPHY_CAM if plane else None)
+    return got, ref, refused
+
+
+@pytest.mark.parametrize("batch", [2, 8])
+@pytest.mark.parametrize("dense", [True, False], ids=["dense", "masked"])
+def test_homography_ransac_emulated(emulated, dense, batch):
+    """Homography's kernels, 91 hypotheses: the dense path on a 42x60
+    lattice (its static eval subset of 2,048) and the masked path, 3,000
+    points with a third masked; B=2 and B=8.  Every stream finds its
+    rotation (the cut stays the threshold)."""
+    flow = _homography_flow(40 + batch, batch, 3000, valid=1.0 if dense else 2 / 3,
+                            lattice=(42, 60) if dense else None)
+    idx = _homography_draws(flow, 41, dense)
+    got, ref, _ = _check_homography(flow, idx, dense, raised=False)
+    assert (ref.fit.score > 0.8 * flow.mask.sum(-1)).all()
+
+
+@pytest.mark.parametrize("dense", [True, False], ids=["dense", "masked"])
+def test_homography_ransac_plane_emulated(emulated, dense):
+    """A camera translating over a plane as it rotates, B=4: the
+    decomposition's two families are distinct rotations with nonzero
+    translations, and each is held to the plain version's as above."""
+    flow = _homography_flow(90, 4, 3000, valid=1.0 if dense else 2 / 3,
+                            lattice=(42, 60) if dense else None, plane=True)
+    got, ref, _ = _check_homography(flow, _homography_draws(flow, 91, dense), dense,
+                                    raised=False, plane=True)
+    assert (_rot_gap(ref.quats[:, 0], ref.quats[:, 1]) > 1e-3).all()
+    assert (ref.tnorm > 1e-5).all()
+
+
+def test_homography_ransac_degenerate_emulated(emulated):
+    """A stream with three valid points (its fit takes what the plain
+    version takes, and the estimator gives identity) and a collinear 4-point
+    sample planted in the other stream (a non-finite candidate, invalid in
+    both versions)."""
+    from ofps_torch.estimators import homography as he
+    from ofps_torch.kernels import homography as kh
+
+    flow = _homography_flow(50, 2, 2500, valid=0.9)
+    pos, mot, mask = (x.clone() for x in flow)
+    mask[1] = 0.0
+    mask[1, [7, 900, 2000]] = 1.0
+    line = torch.tensor([0.1, 0.2, 0.3, 0.4])
+    pos[0, :4] = torch.stack([line, line], -1)
+    mot[0, :4] = 0.01
+    mask[0, :4] = 1.0
+    flow = SparseFlow(pos, mot, mask)
+    idx = robust.as_indices(_homography_draws(flow, 51, dense=False), mask)
+    idx[0, 5] = torch.arange(4)
+    got, ref, _ = _check_homography(flow, idx, dense=False)
+    out = kh._launch(flow, HOMOGRAPHY_CAM, he.HomographyParams(), 91, 0.001, False, idx, None)
+    assert not bool(torch.isfinite(out["models"][0, 5]).all())
+    est = he.make_homography()
+    rot, _, _ = est.estimate((), flow, HOMOGRAPHY_CAM, dense=False, fit_idx=idx)
+    assert torch.equal(rot[1], torch.tensor([1.0, 0.0, 0.0, 0.0]))
+
+
+def test_homography_ransac_noisy_cut_emulated(emulated):
+    """Noise of 2e-3 screen units raises the adaptive cut above the
+    threshold's square in every stream, and the plain version refuses an
+    LO round (the refit's inlier set shrinks or its error does not drop),
+    as the kernels do; masked draws."""
+    flow = _homography_flow(60, 2, 3000, valid=0.8, noise=2e-3)
+    _, _, refused = _check_homography(flow, _homography_draws(flow, 61, dense=False), dense=False,
+                                      raised=True)
+    assert bool(refused.any())
+
+
+@pytest.mark.parametrize("case", ["kernels", "lmeds", "no_prescore", "few_hypotheses", "plain"])
+def test_homography_routing_emulated(emulated, case):
+    """Where the kernels stand in for a card: the defaults launch them;
+    LMedS, ``prescore_cap=0``, fewer hypotheses than finalists (no
+    prescore) and ``plain=True`` (the estimator's, as a ``StreamPipeline(
+    plain=True)`` passes it) run the plain version, with no launch."""
+    from ofps_torch.estimators import homography as he
+    from ofps_torch.kernels import homography as kh
+
+    params = he.HomographyParams(**{"lmeds": {"use_ransac": False},
+                                    "no_prescore": {"prescore_cap": 0}}.get(case, {}))
+    est = he.make_homography(**params._asdict())
+    assert kh.uses_kernels(params) == (case not in ("lmeds", "no_prescore"))
+    flow = _homography_flow(70, 2, 2500)
+    idx = _homography_draws(flow, 71, dense=False, hyps=24 if case == "few_hypotheses" else None)
+    before = kh.ransac.launches
+    rot, _, _ = est.estimate((), flow, HOMOGRAPHY_CAM, dense=False, fit_idx=idx,
+                             plain=case == "plain")
+    assert kh.ransac.launches == before + (kh.LAUNCHES if case == "kernels" else 0)
+    ref = he.ransac_plain(flow, HOMOGRAPHY_CAM, params, idx.shape[-2], 0.001, False, idx)
+    if case == "kernels":
+        assert family_gap(rot[:, None].expand(-1, 2, -1), ref.quats).max().item() <= 1e-6
+    else:
+        assert torch.equal(rot, ref.rot)
+
+
+def test_homography_kernel_parameters():
+    """The parameters the kernels cover: RANSAC with the adaptive cut, a
+    prescore of 1 to 128 points, 1 to 32 finalists, an eval subset of 1 to
+    8,192 points; a CPU flow takes the plain version."""
+    from ofps_torch.estimators import homography as he
+    from ofps_torch.kernels import homography as kh
+
+    p = he.HomographyParams
+    assert kh.uses_kernels(p())
+    for bad in ({"use_ransac": False}, {"adaptive_threshold": False}, {"prescore_cap": 0},
+                {"prescore_cap": 129}, {"finalists": 0}, {"finalists": 33}, {"eval_cap": 0},
+                {"eval_cap": 8193}):
+        assert not kh.uses_kernels(p(**bad)), bad
+    assert kh.uses_kernels(p(prescore_cap=128, finalists=32))
+    assert not kh.on_kernels(p(), torch.zeros(1, 3000, 2), 91)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [8, 32])
+def test_homography_kernels_on_the_card(batch):
+    """Homography's kernels on the card at the cells' shapes, dense (the
+    84x150 lattice) and masked (16,384 rows, a third masked), on a rotating
+    camera and on one that also translates over a plane: the candidates
+    are the plain version's bit for bit (NaNs where it has them), so the
+    prescore medians and counts, the adapted cut, the finalists and the
+    winner are robust_fit's exactly; end to end the same winner, final
+    inliers and count, and the families, norms and pick as
+    ``homography_checks`` holds them; one call adds LAUNCHES launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ofps_torch.estimators import homography as he
+    from ofps_torch.kernels import homography as kh
+    from ofps_torch.ops.homography import dlt_homography
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    params = he.HomographyParams()
+    thr = torch.tensor(params.max_error, device=dev)
+    for dense, plane in ((True, False), (False, False), (True, True), (False, True)):
+        flow = _homography_flow(80 + batch + 10 * plane, batch, 16384,
+                                valid=1.0 if dense else 2 / 3,
+                                lattice=(84, 150) if dense else None, plane=plane)
+        flow = SparseFlow(*(x.to(dev) for x in flow))
+        gen = torch.Generator(device=dev).manual_seed(81 + batch)
+        idx = he.make_homography().draw(gen, (batch,), flow.mask.shape[-1], dev, dense=dense)
+        hyps = idx.shape[-2]
+        assert kh.on_kernels(params, flow.pos, hyps)
+        out = kh._launch(flow, HOMOGRAPHY_CAM, params, hyps, thr, dense, idx, None)
+        ii = robust.as_indices(idx, flow.mask)
+        plain = dlt_homography(
+            *(robust._take_points(x, ii) for x in (flow.pos, flow.pos + flow.motion)),
+            robust._take_points(flow.mask[..., None], ii)[..., 0])
+        assert bool(((out["models"] == plain) | (out["models"].isnan() & plain.isnan())).all())
+        valid = torch.isfinite(plain).flatten(-2).all(-1)
+        assert torch.equal(out["valid"].bool(), valid)
+        thr2, cand, best, med, pre = _homography_selection(plain, valid, flow, params, thr, dense)
+        assert bool(((med == out["med"]) | (med.isnan() & out["med"].isnan())).all())
+        assert torch.equal(pre.int(), out["pre"]) and torch.equal(thr2, out["thr2"])
+        assert torch.equal(cand, out["cand"]) and torch.equal(best, out["best"])
+        before = kh.ransac.launches
+        got = kh.ransac(flow, HOMOGRAPHY_CAM, params, hyps, thr, dense, idx)
+        assert kh.ransac.launches == before + kh.LAUNCHES
+        ref = he.ransac_plain(flow, HOMOGRAPHY_CAM, params, hyps, thr, dense, idx)
+        assert torch.equal(got.fit.best, ref.fit.best)
+        assert torch.equal(got.fit.score, ref.fit.score)
+        assert torch.equal(got.fit.inliers, ref.fit.inliers)
+        assert_fit_matches(got, ref, flow.mask.sum(-1) >= 4, HOMOGRAPHY_CAM if plane else None)
+        if plane:  # away from the pure-rotation branch: two distinct families
+            assert bool((_rot_gap(ref.quats[:, 0], ref.quats[:, 1]) > 1e-3).all())

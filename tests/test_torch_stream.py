@@ -35,6 +35,7 @@ from ofps_torch.estimators import almeida as talm
 from ofps_torch.estimators import homography as the
 from ofps_torch.estimators.base import create_estimator as t_est
 from ofps_torch.kernels import almeida as kalm
+from ofps_torch.kernels import homography as khg
 from ofps_torch.ops import robust as trob
 from ofps_torch.parallel.stream import StreamPipeline as TPipe
 from ofps_tpu.core.camera import StandardCamera as JCam
@@ -43,6 +44,7 @@ from ofps_tpu.estimators.base import create_estimator as j_est
 from ofps_tpu.ops.flow_pyramid import FlowParams as JFlowParams
 from ofps_tpu.ops.robust import sample_indices as j_sample_indices
 from ofps_tpu.parallel.stream import StreamPipeline as JPipe
+from homography_checks import assert_fit_matches
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 H, W, B = 96, 160, 2
@@ -187,9 +189,10 @@ def _hold_homography(tp, i, out, ref, t_state, draws):
     port's two family rotations (on the port's grid, same draws), and JAX's
     integrated rotation within 1e-4 of that family's integrated one."""
     est = tp.estimators[i]
-    h = the.refined_homography(None, est.params, field_to_sparse(out.grid), tp.camera,
-                               dense=True, fit_idx=draws[i])
-    quats, tnorm = the.rotation_candidates(h, tp.camera)  # (B, 2, 4), (B, 2)
+    fit = the.ransac_plain(field_to_sparse(out.grid), tp.camera, est.params,
+                           the.hypothesis_count(est.params), est.params.max_error, dense=True,
+                           idx=draws[i])
+    quats, tnorm = fit.quats, fit.tnorm  # (B, 2, 4), (B, 2)
     rows = torch.arange(B)
     assert torch.equal(out.delta_rot[i], quats[rows, torch.argmin(tnorm, dim=-1)])
     np.testing.assert_allclose(out.rot[i].numpy(), tq.mul(out.delta_rot[i], t_state.rot[i]).numpy(),
@@ -377,9 +380,11 @@ def test_almeida_kernel_in_consumers_graph_on_cuda():
     """On the card almeida's RANSAC is three hand-kernel launches in the
     consumers' graph: a capture launches them twice (its eager warm-up and
     the captured call) and a replay none from the host; the replay's
-    rotations equal the eager plain path's (``plain=True``) within 1e-6
-    rad, with the same winners and counts; and the graph has at least
-    17,000 fewer nodes than the plain pipeline's."""
+    rotations equal the same kernels' called eagerly bit for bit and the
+    eager plain path's (``plain=True``) within 1e-6 rad, with the same
+    winners and counts (homography's, on its own kernels, family by family
+    against its plain version: ``homography_checks``); and the graph has
+    at least 17,000 fewer nodes than the plain pipeline's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
@@ -413,8 +418,28 @@ def test_almeida_kernel_in_consumers_graph_on_cuda():
     assert kalm.ransac.launches == 9  # the one direct call above
     eager = tp_plain._consume(out.grid, state.rot, state.pos, draws, state.est)
     assert kalm.ransac.launches == 9
-    for g, e in zip(graphed[2], eager[2]):
-        assert tq.angle_to(g.double(), e.double()).max().item() <= 1e-6
+    # The same kernels called eagerly: the replay's rotations bit for bit.
+    eager_k = tp._consume(out.grid, state.rot, state.pos, draws, state.est)
+    assert kalm.ransac.launches == 12
+    for g, e in zip(graphed[2], eager_k[2]):
+        assert torch.equal(g, e)
+    assert tq.angle_to(graphed[2][0].double(), eager[2][0].double()).max().item() <= 1e-6
+    # Homography on its kernels against its plain version (the plain
+    # path's rotation), on the same field and draws: the same winner and
+    # count, each family and |t| within 1e-6 rad, the pick the kernels' own
+    # first minimum (which family the minimum picks off the pure-rotation
+    # branch is decided by rounding, ROADMAP Queue 3), and the kernels'
+    # rotation within 1e-6 rad of the nearer plain family.
+    params = tp.estimators[1].params
+    args = (sparse, tp.camera, params, the.hypothesis_count(params), params.max_error, True,
+            draws[1])
+    got, ref_h = khg.ransac(*args), the.ransac_plain(*args)
+    assert torch.equal(got.rot, graphed[2][1]) and torch.equal(ref_h.rot, eager[2][1])
+    assert torch.equal(got.fit.best, ref_h.fit.best)
+    assert torch.equal(got.fit.score, ref_h.fit.score)
+    assert_fit_matches(got, ref_h, torch.ones(B, dtype=torch.bool))
+    near = tq.angle_to(got.rot.double()[:, None], ref_h.quats.double()).min(dim=-1).values
+    assert near.max().item() <= 1e-6
     assert torch.allclose(graphed[2][0], ref[0], rtol=0, atol=1e-6)
     (plain_nodes,) = [g.nodes for g in tp_plain.graphs.calls.values()]
     assert plain_nodes - nodes >= 17000
